@@ -1,0 +1,271 @@
+// Fused ragged + on-the-fly clustered DWT / iDWT for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels `dwt_fused` (_fused_fwd_kernel) and
+// `idwt_fused` (_fused_inv_kernel) of repro/kernels/dwt_fused.py:
+//
+//   forward:  out[k, l, c] = sum_j d_l[k, j] rhs[k, j, c]   for l >= l0
+//   inverse:  g[k, j, c]   = sum_{l >= l0} d_l[k, j] lhs[k, l, c]
+//
+// where d_l[k, :] is the Wigner-d row of cluster k at degree l, generated
+// in place by the three-term recurrence (recurrence.cuh) from a seed row:
+// the (K, L, J) table never exists in device memory.  l0 = l0s[k / tk] is
+// the cluster tile's first degree; rows below it are zero.
+//
+// Layout (row-major, contiguous): seeds (K, J), m, mp (K,) int32,
+// cos_beta (J,), rhs (K, J, C2), lhs / out (K, L, C2), g (K, J, C2),
+// l0s (K / tk,) int32, with J = 2B, L = B and C2 = V * 16 lanes.
+//
+// What bounds it.  Per visited row the contraction is 2 J C2 operations
+// against J C2 + L C2 bytes of operands over the whole l-loop, so at
+// B = 128, V = 8, f64 the card's floor is the memory term (rhs + out +
+// seeds ~ 3.3 GB at 3.35 TB/s ~ 1 ms); the operation term (~23 GFLOP) is
+// the smaller one only at the f64 tensor-core rate, which this kernel does
+// not use: it runs on the FP64 FMA pipes.
+//
+// Design.  The TPU kernel keeps a (TK, J, C2) rhs tile and a (TK, L, C2)
+// output tile in VMEM; at B = 128, f64, V = 8 the rhs tile alone is 2 MiB
+// and a block has 227 KB of shared memory.  Here one block owns ONE
+// cluster and a slice of CS = 32 lanes:
+//   * the block has ceil(J / 32) warps; thread (warp w, lane i) marches the
+//     recurrence for j = 32 w + i, so the two state rows live in registers;
+//   * forward: each thread holds its lane's column of rhs for the warp's
+//     32 j-values in registers for the whole l-loop (rhs is read once);
+//   * every LT = 8 degrees the block stages the generated rows in shared
+//     memory; each warp contracts them against its 32 j-values, and the
+//     per-warp partial sums are added across warps in a fixed order (no
+//     atomics: results are deterministic);
+//   * inverse: thread (w, i) owns g[k, 32 w + jj, c0 + i] for jj < 32 as 32
+//     register accumulators across the whole l-loop, and adds each staged
+//     row times lhs[k, l, c] in ascending l;
+//   * a block starts at its own cluster's m instead of the tile's l0: rows
+//     l0 <= l < m are zero by the recurrence's active mask, so the output
+//     is the same, and the forward writes those zero rows itself.
+// Each lane slice recomputes its cluster's recurrence (C2 / 32 times per
+// cluster, 4x at V = 8); the recurrence is ~8 operations per (j, l)
+// against 64 for the slice's contraction.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "recurrence.cuh"
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kCS = 32;  // output lanes per block: one per thread lane
+constexpr int kLT = 8;   // degrees staged in shared memory per round
+
+__host__ __device__ inline int n_warps(int J) { return (J + kWarp - 1) / kWarp; }
+
+template <typename T>
+__host__ __device__ inline size_t fwd_smem_bytes(int J) {
+  const int nj = n_warps(J) * kWarp;
+  return sizeof(T) * (size_t(kLT) * nj + size_t(n_warps(J)) * kLT * kCS) +
+         sizeof(repro::WignerCoeffs<T>) * kLT;
+}
+
+template <typename T>
+__host__ __device__ inline size_t inv_smem_bytes(int J) {
+  const int nj = n_warps(J) * kWarp;
+  return sizeof(T) * (size_t(kLT) * nj + size_t(kLT) * kCS) +
+         sizeof(repro::WignerCoeffs<T>) * kLT;
+}
+
+// First degree this cluster contributes at: max(l0, m) when the seed row
+// activates inside the tile's range, else L (never seeded: all zero).
+__device__ inline int first_degree(int l0, int m, int L) { return m >= l0 ? m : L; }
+
+template <typename T, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+dwt_fused_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
+              const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
+              const T* __restrict__ rhs, const int* __restrict__ l0s,
+              T* __restrict__ out, int J, int L, int C2, int tk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nw = blockDim.x / kWarp;
+  const int nj = nw * kWarp;
+  T* rows = reinterpret_cast<T*>(smem);                      // [kLT][nj]
+  T* part = rows + kLT * nj;                                 // [nw][kLT][kCS]
+  auto* coef = reinterpret_cast<repro::WignerCoeffs<T>*>(part + nw * kLT * kCS);
+
+  const int k = blockIdx.x;
+  const int c0 = blockIdx.y * kCS;
+  const int lane = threadIdx.x % kWarp;
+  const int w = threadIdx.x / kWarp;
+  const int j = w * kWarp + lane;
+  const int c = c0 + lane;
+  const bool c_ok = c < C2;
+  const int m = m_arr[k], mp = mp_arr[k];
+  const int lbeg = first_degree(l0s[k / tk], m, L);
+
+  T* out_k = out + size_t(k) * L * C2;
+  for (int l = w; l < lbeg; l += nw)
+    if (c_ok) out_k[size_t(l) * C2 + c] = T(0);
+  if (lbeg >= L) return;
+
+  T r[kWarp];
+  const T* rhs_k = rhs + size_t(k) * J * C2;
+#pragma unroll
+  for (int i = 0; i < kWarp; ++i) {
+    const int jj = w * kWarp + i;
+    r[i] = (jj < J && c_ok) ? rhs_k[size_t(jj) * C2 + c] : T(0);
+  }
+  const T seed = j < J ? seeds[size_t(k) * J + j] : T(0);
+  const T cb = j < J ? cos_beta[j] : T(0);
+  T d_prev = T(0), d_cur = T(0);
+
+  for (int lb = lbeg; lb < L; lb += kLT) {
+    const int nlt = min(kLT, L - lb);
+    if (threadIdx.x < nlt) coef[threadIdx.x] = repro::wigner_coeffs<T>(lb + threadIdx.x, m, mp);
+    __syncthreads();
+    for (int t = 0; t < nlt; ++t)
+      rows[t * nj + j] = repro::wigner_step<T>(coef[t], lb + t, m, cb, seed, d_prev, d_cur);
+    __syncthreads();
+    for (int t = 0; t < nlt; ++t) {
+      const T* rw = rows + t * nj + w * kWarp;
+      T acc = T(0);
+#pragma unroll
+      for (int i = 0; i < kWarp; ++i) acc = fma(rw[i], r[i], acc);
+      part[(w * kLT + t) * kCS + lane] = acc;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nlt * kCS; idx += blockDim.x) {
+      const int t = idx / kCS, cc = idx % kCS;
+      T s = T(0);
+      for (int ww = 0; ww < nw; ++ww) s += part[(ww * kLT + t) * kCS + cc];
+      if (c0 + cc < C2) out_k[size_t(lb + t) * C2 + c0 + cc] = s;
+    }
+  }
+}
+
+template <typename T, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+dwt_fused_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
+              const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
+              const T* __restrict__ lhs, const int* __restrict__ l0s,
+              T* __restrict__ g, int J, int L, int C2, int tk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nw = blockDim.x / kWarp;
+  const int nj = nw * kWarp;
+  T* rows = reinterpret_cast<T*>(smem);                      // [kLT][nj]
+  T* lhs_s = rows + kLT * nj;                                // [kLT][kCS]
+  auto* coef = reinterpret_cast<repro::WignerCoeffs<T>*>(lhs_s + kLT * kCS);
+
+  const int k = blockIdx.x;
+  const int c0 = blockIdx.y * kCS;
+  const int lane = threadIdx.x % kWarp;
+  const int w = threadIdx.x / kWarp;
+  const int j = w * kWarp + lane;
+  const int c = c0 + lane;
+  const int m = m_arr[k], mp = mp_arr[k];
+  const int lbeg = first_degree(l0s[k / tk], m, L);
+
+  T acc[kWarp];
+#pragma unroll
+  for (int i = 0; i < kWarp; ++i) acc[i] = T(0);
+  const T seed = j < J ? seeds[size_t(k) * J + j] : T(0);
+  const T cb = j < J ? cos_beta[j] : T(0);
+  T d_prev = T(0), d_cur = T(0);
+  const T* lhs_k = lhs + size_t(k) * L * C2;
+
+  for (int lb = lbeg; lb < L; lb += kLT) {
+    const int nlt = min(kLT, L - lb);
+    if (threadIdx.x < nlt) coef[threadIdx.x] = repro::wigner_coeffs<T>(lb + threadIdx.x, m, mp);
+    for (int idx = threadIdx.x; idx < nlt * kCS; idx += blockDim.x) {
+      const int t = idx / kCS, cc = idx % kCS;
+      lhs_s[idx] = c0 + cc < C2 ? lhs_k[size_t(lb + t) * C2 + c0 + cc] : T(0);
+    }
+    __syncthreads();
+    for (int t = 0; t < nlt; ++t)
+      rows[t * nj + j] = repro::wigner_step<T>(coef[t], lb + t, m, cb, seed, d_prev, d_cur);
+    __syncthreads();
+    for (int t = 0; t < nlt; ++t) {
+      const T* rw = rows + t * nj + w * kWarp;
+      const T x = lhs_s[t * kCS + lane];
+#pragma unroll
+      for (int i = 0; i < kWarp; ++i) acc[i] = fma(rw[i], x, acc[i]);
+    }
+    __syncthreads();
+  }
+
+  if (c < C2) {
+    T* g_k = g + size_t(k) * J * C2;
+#pragma unroll
+    for (int i = 0; i < kWarp; ++i) {
+      const int jj = w * kWarp + i;
+      if (jj < J) g_k[size_t(jj) * C2 + c] = acc[i];
+    }
+  }
+}
+
+template <typename T, int kMaxThreads>
+cudaError_t launch(bool inverse, const T* seeds, const int* m, const int* mp,
+                   const T* cb, const T* x, const int* l0s, T* y, int K,
+                   int J, int L, int C2, int tk, cudaStream_t stream) {
+  const dim3 grid(K, (C2 + kCS - 1) / kCS);
+  const dim3 block(n_warps(J) * kWarp);
+  const size_t smem = inverse ? inv_smem_bytes<T>(J) : fwd_smem_bytes<T>(J);
+  auto kernel = inverse ? dwt_fused_inv<T, kMaxThreads> : dwt_fused_fwd<T, kMaxThreads>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(seeds, m, mp, cb, x, l0s, y, J, L, C2, tk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(bool inverse, const void* seeds, const void* m, const void* mp,
+             const void* cb, const void* x, const void* l0s, void* y, int K,
+             int J, int L, int C2, int tk, void* stream) {
+  if (K <= 0 || J <= 0 || L <= 0 || C2 <= 0 || tk <= 0 || J > 1024)
+    return int(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto launcher) {
+    return launcher(inverse, static_cast<const T*>(seeds), static_cast<const int*>(m),
+                    static_cast<const int*>(mp), static_cast<const T*>(cb),
+                    static_cast<const T*>(x), static_cast<const int*>(l0s),
+                    static_cast<T*>(y), K, J, L, C2, tk, s);
+  };
+  // Up to 512 threads a block may keep 128 registers a thread: the 32
+  // register-resident rhs / accumulator values do not spill.
+  if (J <= 512) return int(args(launch<T, 512>));
+  return int(args(launch<T, 1024>));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns the cudaError_t of the launch (0 = queued on `stream`).
+int dwt_fused_f32(const void* seeds, const void* m, const void* mp, const void* cb,
+                  const void* rhs, const void* l0s, void* out, int K, int J, int L,
+                  int C2, int tk, void* stream) {
+  return dispatch<float>(false, seeds, m, mp, cb, rhs, l0s, out, K, J, L, C2, tk, stream);
+}
+
+int dwt_fused_f64(const void* seeds, const void* m, const void* mp, const void* cb,
+                  const void* rhs, const void* l0s, void* out, int K, int J, int L,
+                  int C2, int tk, void* stream) {
+  return dispatch<double>(false, seeds, m, mp, cb, rhs, l0s, out, K, J, L, C2, tk, stream);
+}
+
+int idwt_fused_f32(const void* seeds, const void* m, const void* mp, const void* cb,
+                   const void* lhs, const void* l0s, void* g, int K, int J, int L,
+                   int C2, int tk, void* stream) {
+  return dispatch<float>(true, seeds, m, mp, cb, lhs, l0s, g, K, J, L, C2, tk, stream);
+}
+
+int idwt_fused_f64(const void* seeds, const void* m, const void* mp, const void* cb,
+                   const void* lhs, const void* l0s, void* g, int K, int J, int L,
+                   int C2, int tk, void* stream) {
+  return dispatch<double>(true, seeds, m, mp, cb, lhs, l0s, g, K, J, L, C2, tk, stream);
+}
+
+// Dynamic shared memory a launch asks for, in bytes (the host-side
+// estimate in kernels/autotune.py must agree).
+long long dwt_fused_smem_bytes(int J, int itemsize, int inverse) {
+  if (itemsize == 4) return (long long)(inverse ? inv_smem_bytes<float>(J) : fwd_smem_bytes<float>(J));
+  return (long long)(inverse ? inv_smem_bytes<double>(J) : fwd_smem_bytes<double>(J));
+}
+
+}  // extern "C"

@@ -1,0 +1,200 @@
+"""Binds the fused DWT kernels to the clustered transforms -- the port of
+the fused branch of ``repro/kernels/ops.py``.
+
+  * :func:`make_dwt_fn` / :func:`make_idwt_fn` -- drop-in replacements for
+    core.batched.dwt_apply / idwt_apply (plug into forward_clustered /
+    inverse_clustered through their dwt_fn / idwt_fn argument), with
+    ``batch=V`` packing V transforms onto the kernel's lane axis so one
+    launch serves the whole stack.
+  * :func:`onthefly_inputs` / :func:`fused_metadata` -- the per-plan seed
+    rows and the l-start-sorted tile schedule, memoized by plan identity.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import quadrature, wigner
+from repro_torch.core.batched import SoftPlan, plan_lstart, resolve_device
+
+from . import dwt_fused
+
+__all__ = ["make_dwt_fn", "make_idwt_fn", "onthefly_inputs",
+           "onthefly_inputs_from_arrays", "fused_metadata", "check_impl",
+           "pack_lanes",
+           "unpack_lanes", "pad_lanes"]
+
+# Schedules of the reference that this port does not run yet, and the
+# ROADMAP.md item that brings each.
+NOT_PORTED = {
+    "dense": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
+    "ragged": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
+    "onthefly": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
+    "lchunk": "ROADMAP.md queue 1 item 5 (streaming path)",
+    "bf16": "ROADMAP.md queue 1 item 5 (streaming path)",
+}
+
+
+def pack_lanes(x: torch.Tensor) -> torch.Tensor:
+    """(V, K, A, C, 2) -> (K, A, V*C*2): V batched transforms side by side
+    on the contraction lane axis, one kernel launch for the whole batch."""
+    V, K, A, C, _ = x.shape
+    return x.movedim(0, 2).reshape(K, A, V * C * 2)
+
+
+def unpack_lanes(x: torch.Tensor, V: int, C: int) -> torch.Tensor:
+    """(K, A, V*C*2) -> (V, K, A, C, 2), inverse of pack_lanes."""
+    K, A, _ = x.shape
+    return x.reshape(K, A, V, C, 2).movedim(2, 0)
+
+
+def pad_lanes(x: torch.Tensor, V: int):
+    """Zero-pad a partial transform stack (n, ...) with n <= V up to the
+    lane width V.  Returns (padded, n); the padded lanes produce zero
+    outputs the caller slices off."""
+    n = x.shape[0]
+    if n > V:
+        raise ValueError(f"stack of {n} transforms exceeds lane width {V}")
+    if n < V:
+        x = torch.cat([x, x.new_zeros((V - n,) + tuple(x.shape[1:]))])
+    return x, n
+
+
+@functools.lru_cache(maxsize=16)
+def fused_metadata(plan: SoftPlan, tk: int):
+    """Host-side ragged metadata for the fused kernels: sort clusters by
+    ascending l-start (padded rows last, at B-1 -- their Wigner rows are
+    identically zero) and reduce each TK-tile to its first degree l0.
+    Returns numpy (perm, l_start, l0s).  Memoized by (plan, tk) identity.
+
+    On the card the sort also orders the blocks longest-first."""
+    l_start = plan_lstart(plan)
+    perm = np.argsort(l_start, kind="stable").astype(np.int32)
+    l0s = dwt_fused.build_tile_lstarts(l_start[perm], tk)
+    return perm, l_start, l0s
+
+
+def onthefly_inputs_from_arrays(seeds, m, mp, cos_beta, *, device=None,
+                                dtype=None):
+    """Kernel inputs (seeds, m, mp, cos_beta) as tensors on ``device``
+    (default: the card) from numpy arrays -- e.g. those of
+    ``repro.kernels.ops.onthefly_inputs`` -- so that both packages can
+    run on identical inputs.  ``dtype`` defaults to the seeds' dtype."""
+    device = resolve_device(device)
+    seeds = torch.tensor(np.asarray(seeds), device=device, dtype=dtype)
+    dt = seeds.dtype
+    return (seeds,
+            torch.tensor(np.asarray(m, np.int32), device=device),
+            torch.tensor(np.asarray(mp, np.int32), device=device),
+            torch.tensor(np.asarray(cos_beta), device=device, dtype=dt))
+
+
+@functools.lru_cache(maxsize=16)
+def onthefly_inputs(plan: SoftPlan):
+    """Seeds/orders/cos(beta) for the fused kernels, on the plan's device.
+
+    Padded clusters get zero seeds -> identically zero Wigner rows.
+    Memoized by plan identity: the seed-table build (one wigner_seed per
+    cluster) runs once per plan."""
+    B = plan.B
+    beta = quadrature.betas(B)
+    K = plan.n_padded
+    seeds = np.zeros((K, 2 * B))
+    m = np.zeros(K, np.int32)
+    mp = np.zeros(K, np.int32)
+    for kidx in range(plan.n_clusters):
+        mm, mmp = plan.table.rep[kidx]
+        seeds[kidx] = wigner.wigner_seed(int(mm), int(mmp), beta)
+        m[kidx], mp[kidx] = mm, mmp
+    return onthefly_inputs_from_arrays(seeds, m, mp, np.cos(beta),
+                                       device=plan.device, dtype=plan.dtype)
+
+
+def _split_ri(x):
+    """(K, A, C, 2) -> (K, A, C*2) merging the real/imag axis into lanes."""
+    return x.reshape(*x.shape[:2], -1)
+
+
+def _unsplit_ri(x, c):
+    return x.reshape(*x.shape[:2], c, 2)
+
+
+def _wrap_batch(raw, batch):
+    """Lift raw(p, x2: (K, A, C2)) to the (plan, x) dwt_fn contract.
+
+    batch=None: x (K, A, C, 2) (the single-transform contract).
+    batch=V (any int >= 1): x (V, K, A, C, 2); the V transforms are
+    packed onto the lane axis so the kernel launches once.
+    """
+    if batch is None:
+        def fn(p: SoftPlan, x):
+            if x.ndim != 4:
+                raise ValueError(f"dwt_fn built without batch expects "
+                                 f"(K, A, C, 2), got {tuple(x.shape)}; pass "
+                                 f"batch=V to make_dwt_fn for a V-stack")
+            return _unsplit_ri(raw(p, _split_ri(x)), x.shape[2])
+        return fn
+
+    def fn(p: SoftPlan, x):
+        if x.ndim != 5 or x.shape[0] != batch:
+            raise ValueError(f"dwt_fn built with batch={batch}, expected "
+                             f"(V, K, A, C, 2), got {tuple(x.shape)}")
+        return unpack_lanes(raw(p, pack_lanes(x)), batch, x.shape[3])
+    return fn
+
+
+def check_impl(impl, lchunk, precision):
+    """Raise on a schedule this port does not run (NotImplementedError
+    naming its ROADMAP.md item) or does not know (ValueError)."""
+    if lchunk is not None:
+        raise NotImplementedError(f"lchunk= (streaming kernels): "
+                                  f"{NOT_PORTED['lchunk']}")
+    if precision == "bf16":
+        raise NotImplementedError(f"precision='bf16': {NOT_PORTED['bf16']}")
+    if precision not in (None, "fp32"):
+        raise ValueError(f"precision must be 'fp32' or 'bf16', "
+                         f"got {precision!r}")
+    if impl in NOT_PORTED:
+        raise NotImplementedError(f"impl={impl!r}: {NOT_PORTED[impl]}")
+    if impl != "fused":
+        raise ValueError(f"impl must be 'auto', 'fused' or 'reference', "
+                         f"got {impl!r}")
+
+
+def _fused_fn(plan: SoftPlan, kernel, tk: int, batch):
+    tk = min(tk, plan.n_padded)
+    seeds, m, mp, cb = onthefly_inputs(plan)
+    perm_np, _, l0s_np = fused_metadata(plan, tk)
+    perm = torch.as_tensor(perm_np, dtype=torch.int64, device=plan.device)
+    inv_perm = torch.as_tensor(np.argsort(perm_np), dtype=torch.int64,
+                               device=plan.device)
+    l0s = torch.as_tensor(l0s_np, device=plan.device)
+    seeds_p, m_p, mp_p = seeds[perm], m[perm], mp[perm]
+
+    def raw(p: SoftPlan, x2):
+        out = kernel(seeds_p, m_p, mp_p, cb, x2[perm], l0s, B=p.B, tk=tk)
+        return out[inv_perm]
+    return _wrap_batch(raw, batch)
+
+
+def make_dwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
+                lchunk=None, precision=None, batch=None):
+    """Build a dwt_fn(plan, rhs) for core.batched.forward_clustered.
+
+    impl: "fused" (the other schedules of the reference raise
+    NotImplementedError naming the ROADMAP item that brings them).
+    batch=V makes the fn accept a (V, K, J, C, 2) stack contracted in ONE
+    kernel launch with V*C*2 lanes.
+    """
+    check_impl(impl, lchunk, precision)
+    return _fused_fn(plan, dwt_fused.dwt_fused, tk, batch)
+
+
+def make_idwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
+                 lchunk=None, precision=None, batch=None):
+    """Build an idwt_fn(plan, lhs) for core.batched.inverse_clustered;
+    see :func:`make_dwt_fn`."""
+    check_impl(impl, lchunk, precision)
+    return _fused_fn(plan, dwt_fused.idwt_fused, tk, batch)

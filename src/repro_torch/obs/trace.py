@@ -1,0 +1,249 @@
+"""Tracing and metrics for the port: the port's own copy of
+``repro.obs.trace`` (stdlib only).
+
+ONE process-wide :class:`Recorder` that the planner and the executors
+report into:
+
+  * **spans** -- ``with obs.span("plan.build", B=8): ...`` records one
+    Chrome-trace complete event (wall-clock begin/dur, pid/tid, attrs)
+    into a ring buffer AND feeds the duration into the histogram of the
+    same name.
+  * **counters** -- ``obs.inc("plan.cache.hit")``; monotonic ints.
+  * **histograms** -- ``obs.observe(name, value)``; a bounded sample ring
+    plus running count/total/max, with p50/p95/p99 quantiles computed on
+    demand (:meth:`Recorder.quantiles`).
+
+:meth:`Recorder.dump_chrome_trace` writes Chrome-trace/Perfetto JSON.
+Spans time the host: the executors launch kernels asynchronously, so a
+span around a launch measures its dispatch, not its device time.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import pathlib
+import threading
+import time
+
+__all__ = ["Recorder", "span", "add_span", "inc", "observe", "counter",
+           "time_fn", "get_recorder", "set_recorder"]
+
+
+class Recorder:
+    """Thread-safe per-process span/counter/histogram store.
+
+    ``max_events`` bounds the Chrome-trace event ring (oldest events are
+    evicted first); ``max_samples`` bounds each histogram's quantile
+    sample ring while count/total/max keep running over everything ever
+    observed -- memory stays O(max_events + names * max_samples) no
+    matter how many millions of requests flow through.
+    """
+
+    def __init__(self, *, max_events: int = 65536, max_samples: int = 4096):
+        self.max_events = int(max_events)
+        self.max_samples = int(max_samples)
+        self._lock = threading.Lock()
+        self._origin = time.perf_counter()
+        self._events: collections.deque = collections.deque(
+            maxlen=self.max_events)
+        self._counters: collections.Counter = collections.Counter()
+        self._samples: dict[str, collections.deque] = {}
+        self._totals: dict[str, list] = {}   # name -> [count, total, max]
+
+    # -- recording ------------------------------------------------------
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs):
+        """Record one wall-clock span (Chrome-trace complete event) and
+        feed its duration into the histogram of the same name."""
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            self.add_span(name, t0, time.perf_counter(), **attrs)
+
+    def add_span(self, name: str, t0: float, t1: float, **attrs) -> None:
+        """Record a span from explicit ``time.perf_counter`` timestamps
+        (for intervals measured across threads, e.g. submit->done)."""
+        dur = max(t1 - t0, 0.0)
+        ev = {"name": name, "ph": "X", "cat": name.split(".", 1)[0],
+              "ts": (t0 - self._origin) * 1e6, "dur": dur * 1e6,
+              "pid": os.getpid(), "tid": threading.get_ident()}
+        if attrs:
+            ev["args"] = attrs
+        with self._lock:
+            self._events.append(ev)
+            self._observe_locked(name, dur)
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] += n
+
+    def observe(self, name: str, value: float) -> None:
+        """One histogram observation (bounded sample ring + running
+        count/total/max)."""
+        with self._lock:
+            self._observe_locked(name, value)
+
+    def _observe_locked(self, name: str, value: float) -> None:
+        ring = self._samples.get(name)
+        if ring is None:
+            ring = self._samples[name] = collections.deque(
+                maxlen=self.max_samples)
+            self._totals[name] = [0, 0.0, float("-inf")]
+        ring.append(float(value))
+        tot = self._totals[name]
+        tot[0] += 1
+        tot[1] += float(value)
+        tot[2] = max(tot[2], float(value))
+
+    # -- reading --------------------------------------------------------
+
+    def counters(self) -> dict:
+        with self._lock:
+            return dict(self._counters)
+
+    def counter(self, name: str) -> int:
+        """One counter's current value (0 if never incremented) -- the
+        monotonicity hook: the serving-tier tests snapshot
+        ``service.*`` counters through this between rounds and assert
+        they never move backwards."""
+        with self._lock:
+            return int(self._counters.get(name, 0))
+
+    def events(self) -> list[dict]:
+        """Snapshot of the ring-buffered events, sorted by begin time."""
+        with self._lock:
+            evs = list(self._events)
+        return sorted(evs, key=lambda e: e["ts"])
+
+    def quantiles(self, name: str) -> dict | None:
+        """{count, mean, p50, p95, p99, max, total} of one histogram
+        (quantiles over the bounded sample ring, count/total/max running
+        over everything observed); None if nothing was observed."""
+        with self._lock:
+            ring = self._samples.get(name)
+            if not ring:
+                return None
+            vals = sorted(ring)
+            count, total, mx = self._totals[name]
+
+        def q(p):
+            return vals[min(len(vals) - 1, int(p * len(vals)))]
+
+        return {"count": count, "mean": total / count, "p50": q(0.50),
+                "p95": q(0.95), "p99": q(0.99), "max": mx, "total": total}
+
+    def summary(self, prefix=None) -> dict:
+        """{name: quantiles} for every histogram whose name starts with
+        one of ``prefix`` (a str or tuple; None = all)."""
+        with self._lock:
+            names = list(self._samples)
+        if prefix is not None:
+            names = [n for n in names if n.startswith(prefix)]
+        out = {}
+        for n in sorted(names):
+            q = self.quantiles(n)
+            if q is not None:
+                out[n] = q
+        return out
+
+    # -- export ---------------------------------------------------------
+
+    def chrome_trace(self) -> dict:
+        """The Chrome-trace/Perfetto JSON document of the event ring."""
+        return {"displayTimeUnit": "ms", "traceEvents": self.events()}
+
+    def dump_chrome_trace(self, path) -> pathlib.Path:
+        """Write the Chrome-trace JSON to ``path`` and return it.  Load
+        at chrome://tracing or https://ui.perfetto.dev."""
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(self.chrome_trace()) + "\n")
+        return path
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self._counters.clear()
+            self._samples.clear()
+            self._totals.clear()
+            self._origin = time.perf_counter()
+
+
+# ---------------------------------------------------------------------------
+# the process-default recorder + module-level conveniences
+# ---------------------------------------------------------------------------
+
+_default = Recorder()
+
+
+def get_recorder() -> Recorder:
+    """The process-wide default Recorder every instrumented layer
+    reports into (planner, autotuner, executors, service)."""
+    return _default
+
+
+def set_recorder(recorder: Recorder) -> Recorder:
+    """Swap the process-default Recorder (tests / scoped profiling);
+    returns the previous one so callers can restore it."""
+    global _default
+    old, _default = _default, recorder
+    return old
+
+
+def span(name: str, **attrs):
+    """``with obs.span("plan.build", B=8): ...`` on the default
+    Recorder."""
+    return get_recorder().span(name, **attrs)
+
+
+def add_span(name: str, t0: float, t1: float, **attrs) -> None:
+    get_recorder().add_span(name, t0, t1, **attrs)
+
+
+def inc(name: str, n: int = 1) -> None:
+    get_recorder().inc(name, n)
+
+
+def observe(name: str, value: float) -> None:
+    get_recorder().observe(name, value)
+
+
+def counter(name: str) -> int:
+    return get_recorder().counter(name)
+
+
+def time_fn(fn, *args, reps: int = 3, name: str | None = None,
+            recorder: Recorder | None = None, sync=None, **attrs) -> float:
+    """Measure ``fn(*args)``: one untimed warmup call (kernel build +
+    cache fill), then ``reps`` timed calls synced once at the end;
+    returns mean seconds per call on the host clock.
+
+    Records the measurement into ``recorder`` (default: the process
+    Recorder) as a span named ``name`` (default ``fn.__name__``) carrying
+    ``reps``/``per_call_s`` plus any extra ``attrs``.  ``sync`` is the
+    completion barrier (default ``torch.cuda.synchronize`` when CUDA is
+    initialized, else nothing: CPU torch ops are synchronous)."""
+    if sync is None:
+        sync = _torch_sync
+    rec = get_recorder() if recorder is None else recorder
+    fn(*args)                                 # build + warm
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    sync()
+    t1 = time.perf_counter()
+    per_call = (t1 - t0) / reps
+    rec.add_span(name or getattr(fn, "__name__", "time_fn"), t0, t1,
+                 reps=reps, per_call_s=per_call, **attrs)
+    return per_call
+
+
+def _torch_sync() -> None:
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()

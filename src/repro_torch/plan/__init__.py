@@ -1,0 +1,31 @@
+"""``repro_torch.plan`` -- the plan-then-execute entry point of the port.
+
+The module itself is callable, like ``repro.plan``:
+
+    from repro_torch import plan
+    t = plan(16)                  # resolve schedule, build tables on the card
+    fhat = t.forward(f)           # execute many times
+
+See :mod:`repro_torch.plan.transform`.
+"""
+from __future__ import annotations
+
+import sys
+import types
+
+from .transform import (IMPLS, Schedule, Transform, cache_stats,  # noqa: F401
+                        clear_cache, dense_table_bytes_limit, plan)
+
+__all__ = ["plan", "Transform", "Schedule", "clear_cache", "cache_stats",
+           "dense_table_bytes_limit", "IMPLS"]
+
+
+class _CallableModule(types.ModuleType):
+    """Lets ``repro_torch.plan(B, ...)`` build a Transform directly while
+    the module keeps exposing Transform/Schedule/etc. as attributes."""
+
+    def __call__(self, *args, **kwargs):
+        return plan(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule
