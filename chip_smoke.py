@@ -10,10 +10,14 @@ Phases (any failure exits non-zero):
      path's shapes (B = 128 f64 V = 8, B = 64 f32 V = 8) and at small edge
      shapes, with times for the kernel, its plain version and one library
      call (torch.bmm against a materialized Wigner table);
+  3b. each grid-FFT stage: one batched cuFFT call over V grids against
+     one call per grid, bitwise, with both times;
   4. the main path: repro_torch.plan(128) at its defaults,
      inverse_batch of 8 coefficient sets then forward_batch, held to the
      paper's Table-1 roundtrip metric and to the single transforms;
-  5. repro_torch.plan(256): one inverse -> forward roundtrip.
+  5. repro_torch.plan(256): one inverse -> forward roundtrip;
+  6. repro_torch.plan(512) is refused: one transform needs more memory
+     than the card has.
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.
 """
@@ -98,12 +102,17 @@ def visited_rows(m, l0s, tk: int, L: int) -> int:
 
 
 def bound(name, seeds, x, out, rows, dtype_name):
-    """(bound_ms, bound_by): each input read once, each output written
-    once, over the card's memory rate; the contraction (2 J C2 per row)
-    and the recurrence step (5 J per row) over the peak rate."""
+    """(bound_ms, bound_by): what the function must move over the card's
+    memory rate, against its operations over the peak rate.  Bytes: the
+    seeds, cos(beta), the index vectors and the output once each; the
+    forward reads all of rhs, the inverse only the lhs rows it visits
+    (l from each cluster's start).  Operations: the contraction (2 J C2
+    per visited row) and the recurrence step (5 J per visited row)."""
     K, J = seeds.shape
     C2 = x.shape[-1]
-    nbytes = (seeds.numel() + x.numel() + out.numel() + J) * seeds.element_size() \
+    itemsize = seeds.element_size()
+    x_elems = rows * C2 if name == "idwt_fused" else x.numel()
+    nbytes = (seeds.numel() + J + x_elems + out.numel()) * itemsize \
         + 4 * (3 * K)
     ops = rows * (2 * J * C2 + 5 * J)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -184,6 +193,47 @@ def kernel_case(B: int, dtype, V: int, *, time_it: bool, seed: int):
     del table
     torch.cuda.empty_cache()
     return recs
+
+
+def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
+    """Each grid-FFT stage of core.batched at plan(B)'s shapes: does one
+    batched call over V grids give each grid bitwise what its own call
+    gives?  Also the device time of the batched call and of V calls."""
+    import torch
+    from repro_torch.core import batched
+
+    dev = torch.device("cuda")
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 2 * B
+    j0, j1 = batched._slab_bounds(n)[0]
+    f = torch.randn((V, n, n, n), generator=gen, device=dev, dtype=cdt)
+    # bins as _scatter_bins_nomirror leaves them: a view that drops the
+    # trash row and column
+    bins = torch.randn((V, n + 1, j1 - j0, n + 1), generator=gen,
+                       device=dev, dtype=cdt)[:, :n, :, :n]
+    res = {}
+    for name, x, args in (("fft_analysis", f, ()),
+                          ("fft_analysis_slab", f, (j0, j1)),
+                          ("fft_synthesis", bins, ())):
+        fn = getattr(batched, name).__wrapped__
+        one = fn(x, *args)
+        each = torch.stack([fn(xi, *args) for xi in x])
+        same = bool(torch.equal(one, each))
+        diff = float((one - each).abs().max())
+        del one, each
+        res[name] = {
+            "bitwise": same, "max_abs_diff": diff,
+            "batched_ms": cuda_ms(lambda: fn(x, *args), 3),
+            "per_lane_ms": cuda_ms(
+                lambda: torch.stack([fn(xi, *args) for xi in x]), 3)}
+        r = res[name]
+        log(f"  {name:17s} B={B} V={V} {cdt}: batched == per lane "
+            f"{same} (max diff {diff:.3e}); batched {r['batched_ms']:.3f} ms"
+            f", per lane {r['per_lane_ms']:.3f} ms")
+    del f, bins
+    torch.cuda.empty_cache()
+    return res
 
 
 def roundtrip_metric(fhat, back, mask):
@@ -384,6 +434,12 @@ def main() -> int:
     recs = kernel_case(128, torch.float64, 8, time_it=True, seed=128)
     recs32 = kernel_case(64, torch.float32, 8, time_it=True, seed=64)
 
+    log("== 3b. batched cuFFT against one call per grid")
+    fft_lanes = {f"B{B}_{str(dt)[6:]}_V{V}": fft_lane_check(B, V, dt, seed=B)
+                 for B, dt, V in ((128, torch.float64, 8),
+                                  (64, torch.float64, 8),
+                                  (64, torch.float32, 8))}
+
     log("== 4. main path: plan(128), inverse_batch(8) -> forward_batch")
     counts = {}
     t128, fs128, timing = main_path(128, 8, counts)
@@ -397,6 +453,16 @@ def main() -> int:
 
     log("== 5. plan(256): single inverse -> forward")
     counts256, ms256 = single_roundtrip(256)
+
+    log("== 6. plan(512): refused while one transform does not fit the card")
+    import repro_torch
+    try:
+        repro_torch.plan(512)
+    except ValueError as e:
+        log(f"  refused: {e}")
+    else:
+        fail("plan(512) was planned: drive it here in place of this check")
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -418,6 +484,7 @@ def main() -> int:
             "launches_b256_single": counts256[name],
         })
     summary = {"main_path_b128_v8": timing, "b256_single_roundtrip_ms": ms256,
+               "fft_lanes": fft_lanes,
                "wall_s": time.perf_counter() - t_start}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import os
+import functools
 
 import numpy as np
 import torch
@@ -169,41 +169,16 @@ def _torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
-# Byte-bounded LRU memo of built plans: a dense plan holds the full
-# (K, L, J) Wigner table (~1 GB at B = 128), so the bound is in bytes.
-# The newest plan is always kept, even if it alone exceeds the bound.
+# LRU memo of built plans, bounded in count like the planner's Transform
+# cache (a dense plan holds the full (K, L, J) Wigner table).
 _PLAN_CACHE: collections.OrderedDict = collections.OrderedDict()
-_PLAN_CACHE_DEFAULT_BYTES = 2 * 1024 ** 3
-_PLAN_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
-
-
-def plan_cache_bytes_limit() -> int:
-    """Cache bound in bytes; override with $REPRO_PLAN_CACHE_BYTES."""
-    return int(os.environ.get("REPRO_PLAN_CACHE_BYTES",
-                              _PLAN_CACHE_DEFAULT_BYTES))
-
-
-def _plan_nbytes(plan: SoftPlan) -> int:
-    return sum(x.numel() * x.element_size()
-               for x in (getattr(plan, n) for n in PLAN_LEAVES)
-               if x is not None)
+_PLAN_CACHE_MAX = 16
+_PLAN_CACHE_STATS = {"hits": 0, "misses": 0}
 
 
 def plan_cache_stats() -> dict:
-    """Counters + byte accounting for the build_plan memo."""
-    return dict(_PLAN_CACHE_STATS,
-                plans=len(_PLAN_CACHE),
-                bytes=sum(n for _, n in _PLAN_CACHE.values()),
-                bytes_limit=plan_cache_bytes_limit())
-
-
-def _plan_cache_put(key, plan: SoftPlan) -> None:
-    _PLAN_CACHE[key] = (plan, _plan_nbytes(plan))
-    limit = plan_cache_bytes_limit()
-    while len(_PLAN_CACHE) > 1 and \
-            sum(n for _, n in _PLAN_CACHE.values()) > limit:
-        _PLAN_CACHE.popitem(last=False)
-        _PLAN_CACHE_STATS["evictions"] += 1
+    """Hit / miss counters and size of the build_plan memo."""
+    return dict(_PLAN_CACHE_STATS, plans=len(_PLAN_CACHE))
 
 
 def plan_arrays(B: int, *, pad_to: int | None = None,
@@ -269,13 +244,15 @@ def build_plan(B: int, dtype=torch.float64, pad_to: int | None = None,
     if hit is not None:
         _PLAN_CACHE.move_to_end(key)
         _PLAN_CACHE_STATS["hits"] += 1
-        return hit[0]
+        return hit
     _PLAN_CACHE_STATS["misses"] += 1
     arrays, Kp = plan_arrays(B, pad_to=pad_to, order=order,
                              streaming=streaming)
     plan = soft_plan_from_arrays(B, arrays, n_padded=Kp, plan_dtype=dtype,
                                  device=device)
-    _plan_cache_put(key, plan)
+    _PLAN_CACHE[key] = plan
+    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+        _PLAN_CACHE.popitem(last=False)
     return plan
 
 
@@ -304,13 +281,15 @@ def plan_lstart(plan: SoftPlan) -> np.ndarray:
 def _per_grid(fn):
     """Apply a 3-D grid FFT stage to each grid of a (V, ...) stack on its
     own.  An FFT library may order its arithmetic differently for another
-    batch count (pocketfft on the CPU does), so transforming lane by lane
-    keeps lane k of a batch bitwise equal to the single transform."""
+    batch count: pocketfft on the CPU does, and so does cuFFT on an H100
+    for the analysis stages (``chip_smoke.py`` phase 3b).  Transforming
+    lane by lane keeps lane k of a batch bitwise equal to the single
+    transform."""
+    @functools.wraps(fn)
     def stage(x: torch.Tensor, *args) -> torch.Tensor:
         if x.ndim == 3:
             return fn(x, *args)
         return torch.stack([stage(xi, *args) for xi in x])
-    stage.__name__, stage.__doc__ = fn.__name__, fn.__doc__
     return stage
 
 

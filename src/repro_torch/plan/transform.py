@@ -31,6 +31,7 @@ __all__ = ["Transform", "Schedule", "plan", "clear_cache", "cache_stats",
 # impl="auto" resolves to "fused"; "reference" is the plain einsum oracle
 IMPLS = ("reference", "fused")
 
+# cluster tile of the l0 schedule; plans pad K to a multiple of it
 _DEF_TK = 8
 
 _NOT_PORTED = {
@@ -63,13 +64,10 @@ class Schedule:
     batch_bytes: int        # device bytes of one V-lane batch call
 
 
-def _default_tk(K: int) -> int:
-    return max(t for t in (1, 2, 4, _DEF_TK) if K % t == 0)
-
-
-def _static_schedule(soft_plan: SoftPlan, impl: str, V, tk) -> Schedule:
+def _static_schedule(soft_plan: SoftPlan, impl: str, V) -> Schedule:
     """Widest lane width whose batch buffers fit the device (V="auto"),
-    and the fused kernels' shared memory checked against Hopper's 227 KB.
+    one V=1 transform's buffers checked against the device's memory, and
+    the fused kernels' shared memory against Hopper's 227 KB.
     """
     K, B = soft_plan.n_padded, soft_plan.B
     itemsize = torch.empty((), dtype=soft_plan.dtype).element_size()
@@ -79,7 +77,13 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V, tk) -> Schedule:
             f"impl='reference' needs the dense Wigner table, but this "
             f"B={B} plan was built streaming (d=None); use impl='fused' or "
             f"plan with streaming=False")
-    tk = _default_tk(K) if tk is None else tk
+    need = autotune.estimate_batch_bytes(B, K, 1, itemsize)
+    have = autotune.device_memory_bytes(soft_plan.device)
+    if need > have:
+        raise ValueError(
+            f"one B={B} transform needs ~{need} bytes of {soft_plan.device} "
+            f"memory (autotune.estimate_batch_bytes at V=1), over its "
+            f"{have}; see ROADMAP.md queue 3 (B = 512 on one card)")
     if V == "auto":
         V = autotune.static_lane_width(B, K, itemsize, soft_plan.device)
         source = "static"
@@ -95,7 +99,7 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V, tk) -> Schedule:
                 f"fused kernels need {smem} bytes of shared memory per "
                 f"block at B={B}, over the {autotune.SMEM_LIMIT_BYTES} "
                 f"a Hopper block may use")
-    return Schedule(impl, V, tk, source, smem,
+    return Schedule(impl, V, _DEF_TK, source, smem,
                     autotune.estimate_batch_bytes(B, K, V, itemsize))
 
 
@@ -298,7 +302,7 @@ def clear_cache() -> None:
 
 def cache_stats() -> dict:
     """Planner cache counters; ``soft_plan_cache`` surfaces the
-    byte-bounded core.batched plan memo."""
+    core.batched plan memo."""
     return dict(_CACHE_STATS, size=len(_CACHE),
                 soft_plan_cache=batched.plan_cache_stats())
 
@@ -315,7 +319,7 @@ def dense_table_bytes_limit() -> int:
 
 
 def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
-         tk: int | None = None, streaming: bool | None = None, device=None,
+         streaming: bool | None = None, device=None,
          lchunk: int | None = None, precision: str | None = None,
          mesh=None, tune: str | None = None) -> Transform:
     """Plan one SO(3) FFT configuration; returns a memoized Transform.
@@ -356,7 +360,7 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
     elif streaming and impl == "reference":
         raise ValueError("streaming=True needs impl='fused' (the reference "
                          "einsum reads the dense Wigner table)")
-    key = (B, dtype, impl, V, tk, bool(streaming), str(device))
+    key = (B, dtype, impl, V, bool(streaming), str(device))
     hit = _CACHE.get(key)
     if hit is not None:
         _CACHE_STATS["hits"] += 1
@@ -368,10 +372,10 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
     with obs.span("plan.build", B=B, impl=impl, streaming=bool(streaming),
                   device=str(device)):
         soft_plan = batched.build_plan(
-            B, dtype=dtype, pad_to=tk if tk is not None else _DEF_TK,
-            streaming=bool(streaming), device=device)
+            B, dtype=dtype, pad_to=_DEF_TK, streaming=bool(streaming),
+            device=device)
         with obs.span("plan.schedule", B=B, impl=impl):
-            schedule = _static_schedule(soft_plan, impl, V, tk)
+            schedule = _static_schedule(soft_plan, impl, V)
         t = Transform(soft_plan=soft_plan, schedule=schedule)
     _CACHE[key] = t
     while len(_CACHE) > _CACHE_MAX:

@@ -131,6 +131,14 @@ def test_plan_cache_and_callable_module():
     assert tplan(8, device="cpu", V=4) is not a
 
 
+def test_plan_refuses_a_transform_over_device_memory(monkeypatch):
+    tplan.clear_cache()
+    monkeypatch.setattr(autotune, "device_memory_bytes", lambda device: 1024)
+    with pytest.raises(ValueError, match="estimate_batch_bytes"):
+        tplan(8, device="cpu")
+    tplan.clear_cache()
+
+
 def test_schedule_and_describe():
     t = tplan(16, device="cpu")
     d = t.describe()
