@@ -5,46 +5,83 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from src/repro_torch/kernels/csrc with nvcc;
-  3. each kernel against its plain torch version on the card at the main
-     path's shapes (B = 128 f64 V = 8, B = 64 f32 V = 8) and at small edge
-     shapes, with times for the kernel, its plain version and one library
-     call (torch.bmm against a materialized Wigner table);
+  2. build every CUDA source of src/repro_torch/kernels/csrc with nvcc
+     (one process per source, all at once), print each kernel's
+     registers and spills, and hold the host's shared-memory estimates
+     to the kernels' own figures;
+  3. each kernel against its plain torch version on the card: the fused
+     DWT / iDWT at the main path's shapes (B = 128 f64 V = 8, B = 64 f32
+     V = 8), the 1024-thread variant at J = 1024 (a subset of B = 512's
+     clusters), the window builder and the streaming DWT / iDWT at
+     B = 128 f64 V = 8 lchunk 16, B = 64 f32 V = 8 and B = 128 f32 bf16,
+     and all of them at edge shapes B = 4..32; times for the kernel, its
+     plain version and one library call (torch.bmm against a
+     materialized Wigner table), beside the kernel's bound; and the bf16
+     limit against planted rounding faults (round toward zero, no
+     rounding, half the rows rounded), each of which it must reject;
   3b. each grid-FFT stage: one batched cuFFT call over V grids against
      one call per grid, bitwise, with both times;
+  3c. the streaming kernels equal the fused ones bit for bit, fp32 and
+     f64, lchunk 8 / 32 / 128 at B = 128 V = 8, with both kernels' times;
   4. the main path: repro_torch.plan(128) at its defaults,
      inverse_batch of 8 coefficient sets then forward_batch, held to the
      paper's Table-1 roundtrip metric and to the single transforms;
-  5. repro_torch.plan(256): one inverse -> forward roundtrip;
-  6. repro_torch.plan(512) is refused: one transform needs more memory
-     than the card has.
+  4b. the streaming path: plan(128, lchunk=16), whose batch results equal
+     phase 4's bit for bit, and plan(128, float32, precision="bf16")
+     within PRECISION_ERROR_BOUNDS[128] of the fp32 plan;
+  5. repro_torch.plan(256): one inverse -> forward roundtrip, and the bf16
+     plan's error against the fp32 plan in float32;
+  6. repro_torch.plan(512) f64 V = 1: one inverse -> forward roundtrip,
+     its peak device memory against autotune.estimate_batch_bytes (and
+     phase 4's pair at B = 128 V = 8), then the fused kernels alone at
+     B = 512's full shape.
 The line before the last is one JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.
+is {"ok": true, "device": {...}}.  Long logs go to chiprun_out/.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
+OUT = ROOT / "chiprun_out"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f64 on the
 # tensor cores and f32 outside them, FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 
+DEV = "cuda"
+
 TOL = {"float64": 1e-10, "float32": 5e-4}   # max|kernel - plain| / max|plain|
+# bf16: kernel and plain version generate the same Wigner rows bit for bit
+# (the recurrence twin rounds like recurrence.cuh) and round them to bf16
+# alike, so what is left is the plan dtype's summation order, as in fp32
+# (B = 128 f32: 2.0e-7 to 2.2e-7).  A wrong rounding moves the outputs by
+# ~1e-3; phase 3 checks that this limit rejects such planted faults.
+TOL_BF16 = {"float64": 1e-10, "float32": 1e-5}
+
+# Roundtrip gates (paper Table-1 metric), fixed before each bandwidth's
+# first run: B = 128 batched, B = 256 single, B = 512 single.
+RT_GATES = {128: (1e-12, 1e-9), 256: (5e-12, None), 512: (1e-11, 1e-9)}
 
 KERNELS = {
     "dwt_fused": {"replaces": "src/repro/kernels/dwt_fused.py:110",
                   "source": "src/repro_torch/kernels/csrc/dwt_fused.cu"},
     "idwt_fused": {"replaces": "src/repro/kernels/dwt_fused.py:170",
                    "source": "src/repro_torch/kernels/csrc/dwt_fused.cu"},
+    "build_windows": {"replaces": "src/repro/kernels/streaming.py:94",
+                      "source": "src/repro_torch/kernels/csrc/streaming.cu"},
+    "dwt_streaming": {"replaces": "src/repro/kernels/streaming.py:194",
+                      "source": "src/repro_torch/kernels/csrc/streaming.cu"},
+    "idwt_streaming": {"replaces": "src/repro/kernels/streaming.py:273",
+                       "source": "src/repro_torch/kernels/csrc/streaming.cu"},
 }
 
 
@@ -92,6 +129,36 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def ptxas_summary(name: str, text: str) -> list[str]:
+    """One line per compiled kernel: short name, registers, spills."""
+    rows, cur, stack = [], None, ""
+    for line in text.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            cur = hit.group(1)
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit and cur:
+            stack = f"spill st/ld {hit.group(1)}/{hit.group(2)} B"
+            continue
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and cur:
+            short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
+                              r"dwt_stream_inv|build_windows_kernel)I(.*?)EEv",
+                              cur)
+            label = f"{short.group(1)}<{short.group(2)[:40]}>" if short \
+                else cur[:60]
+            rows.append(f"  [{name}] {label}: {hit.group(1)} registers, "
+                        f"{stack}")
+            cur = None
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
 def visited_rows(m, l0s, tk: int, L: int) -> int:
     """Degree rows the kernels' data needs: each cluster from max(l0, m)
     to L-1, none for a cluster never seeded (m < its tile's l0)."""
@@ -101,90 +168,159 @@ def visited_rows(m, l0s, tk: int, L: int) -> int:
     return int(torch.where(m >= l0, L - m, torch.zeros_like(m)).sum())
 
 
-def bound(name, seeds, x, out, rows, dtype_name):
+def bound(name, seeds, x, out, rows, dtype_name, win_bytes=0):
     """(bound_ms, bound_by): what the function must move over the card's
     memory rate, against its operations over the peak rate.  Bytes: the
-    seeds, cos(beta), the index vectors and the output once each; the
-    forward reads all of rhs, the inverse only the lhs rows it visits
-    (l from each cluster's start).  Operations: the contraction (2 J C2
-    per visited row) and the recurrence step (5 J per visited row)."""
+    seeds, cos(beta), the index vectors and the output once each, the
+    window stack once (streaming kernels); the forward reads all of rhs,
+    the inverse only the lhs rows it visits (l from each cluster's
+    start).  Operations: the contraction (2 J C2 per visited row) and the
+    recurrence step (5 J per visited row)."""
     K, J = seeds.shape
     C2 = x.shape[-1]
     itemsize = seeds.element_size()
-    x_elems = rows * C2 if name == "idwt_fused" else x.numel()
+    x_elems = rows * C2 if name.startswith("idwt") else x.numel()
     nbytes = (seeds.numel() + J + x_elems + out.numel()) * itemsize \
-        + 4 * (3 * K)
+        + 4 * (4 * K) + win_bytes
     ops = rows * (2 * J * C2 + 5 * J)
+    return _bound(nbytes, ops, dtype_name)
+
+
+def _bound(nbytes, ops, dtype_name):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_case(B: int, dtype, V: int, *, time_it: bool, seed: int):
-    """Both kernels against their plain versions on the main path's
-    inputs for plan(B, dtype); returns {name: record}."""
-    import torch
-    from repro_torch.core import batched
-    from repro_torch.kernels import dwt_fused as dfk, ops, ref
-
-    dev = torch.device("cuda")
-    plan = batched.build_plan(B, dtype=dtype, pad_to=8, streaming=True,
-                              device=dev)
-    tk = min(8, plan.n_padded)
-    seeds, m, mp, cb = ops.onthefly_inputs(plan)
-    perm_np, _, l0s_np = ops.fused_metadata(plan, tk)
-    perm = torch.as_tensor(perm_np, dtype=torch.int64, device=dev)
-    seeds, m, mp = seeds[perm].contiguous(), m[perm].contiguous(), mp[perm].contiguous()
-    l0s = torch.as_tensor(l0s_np, device=dev)
+def window_bound(seeds, m, win, L, lchunk, dtype_name):
+    """build_windows: reads the seeds, cos(beta) and orders once, writes
+    the window stack once; marches 5 operations per (j, degree) from each
+    cluster's m to the last boundary it stores."""
     K, J = seeds.shape
-    C2 = V * 16
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    rhs = torch.randn((K, J, C2), generator=gen, device=dev, dtype=dtype)
-    # lhs like _gather_coeffs makes it: zero below each cluster's l-start
-    lhs = torch.randn((K, B, C2), generator=gen, device=dev, dtype=dtype)
-    lhs *= (torch.arange(B, device=dev)[None, :] >= m[:, None].long())[..., None]
-    dname = str(dtype).replace("torch.", "")
-    rows = visited_rows(m, l0s, tk, B)
-    args = (seeds, m, mp, cb)
-    recs = {}
-    table = None
-    for name, x, kern, plain, lib in (
-            ("dwt_fused", rhs, dfk.dwt_fused, dfk.dwt_fused_plain,
-             lambda d: torch.bmm(d, rhs)),
-            ("idwt_fused", lhs, dfk.idwt_fused, dfk.idwt_fused_plain,
-             lambda d: torch.bmm(d.transpose(1, 2), lhs))):
-        got = kern(*args, x, l0s, B=B, tk=tk)
-        want = plain(*args, x, l0s, B=B, tk=tk)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"{name} B={B} {dname}: non-finite output")
-        abs_err = float((got - want).abs().max())
-        rel_err = abs_err / max(float(want.abs().max()), 1e-300)
+    lstop = (L // lchunk - 1) * lchunk
+    steps = int((lstop - m.long()).clamp(min=0).sum())
+    nbytes = (seeds.numel() + J) * seeds.element_size() + 8 * K \
+        + win.numel() * win.element_size()
+    return _bound(nbytes, steps * J * 5, dtype_name)
+
+
+class Case:
+    """The kernels' inputs for plan(B, dtype) in launch order, with the
+    operands rhs / lhs in the caller's row order (read through perm), or
+    -- with ``subset`` -- a sorted subset of the clusters in launch order
+    (perm None)."""
+
+    def __init__(self, B, dtype, V, *, seed, subset=None):
+        import torch
+        from repro_torch.core import batched
+        from repro_torch.kernels import dwt_fused as dfk, ops
+
+        dev = torch.device(DEV)
+        self.B, self.dtype, self.V = B, dtype, V
+        self.dname = str(dtype).replace("torch.", "")
+        plan = batched.build_plan(B, dtype=dtype, pad_to=8, streaming=True,
+                                  device=dev)
+        tk = self.tk = min(8, plan.n_padded)
+        seeds, m, mp, cb = ops.onthefly_inputs(plan)
+        perm_np, l_start, l0s_np = ops.fused_metadata(plan, tk)
+        if subset is not None:          # evenly spaced, still sorted
+            import numpy as np
+            idx = np.linspace(0, len(perm_np) - 1, subset).astype(int)
+            perm_np = perm_np[idx]
+            l0s_np = dfk.build_tile_lstarts(l_start[perm_np], tk)
+        order = torch.as_tensor(perm_np, dtype=torch.int64, device=dev)
+        self.args = (seeds[order].contiguous(), m[order].contiguous(),
+                     mp[order].contiguous(), cb)
+        self.l0s = torch.as_tensor(l0s_np, device=dev)
+        self.perm = None if subset is not None else \
+            torch.as_tensor(perm_np, device=dev)
+        K, J = self.args[0].shape
+        C2 = V * 16
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.rhs = torch.randn((K, J, C2), generator=gen, device=dev,
+                               dtype=dtype)
+        # lhs like _gather_coeffs makes it: zero below each cluster's start
+        m_rows = m if self.perm is not None else self.args[1]
+        lhs = torch.randn((K, B, C2), generator=gen, device=dev, dtype=dtype)
+        lhs *= (torch.arange(B, device=dev)[None, :]
+                >= m_rows[:, None].long())[..., None]
+        self.lhs = lhs
+        self.shape = [K, J, C2]
+        self.rows = visited_rows(self.args[1], self.l0s, tk, B)
+
+    def sorted(self, x):
+        from repro_torch.kernels import dwt_fused as dfk
+        return dfk.permute_rows(x, self.perm)
+
+    def plain(self, fn, x, *extra, **kw):
+        """The plain version on the kernel's operands, in caller order."""
+        from repro_torch.kernels import dwt_fused as dfk
+        return dfk.unpermute_rows(
+            fn(*self.args, self.sorted(x), self.l0s, *extra, B=self.B,
+               tk=self.tk, **kw), self.perm)
+
+    def table(self, precision="fp32"):
+        import torch
+        from repro_torch.kernels import ref
+        t = ref.wigner_rec_table_ref(*self.args, self.B)
+        return t.to(torch.bfloat16).to(t.dtype) if precision == "bf16" else t
+
+
+def compare(name, tag, got, want, dname, precision="fp32"):
+    import torch
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name} {tag}: non-finite output")
+    same = bool(torch.equal(got, want))
+    got, want = got.double(), want.double()
+    abs_err = float((got - want).abs().max())
+    rel_err = abs_err / max(float(want.abs().max()), 1e-300)
+    tol = (TOL_BF16 if precision == "bf16" else TOL)[dname]
+    log(f"  {name:14s} {tag}: max|k-p|={abs_err:.3e} rel={rel_err:.3e} "
+        f"(tol {tol:g}){' bitwise' if same else ''}")
+    if not rel_err <= tol:
+        fail(f"{name} {tag}: kernel disagrees with its plain version: rel "
+             f"err {rel_err:.3e} > {tol:g}")
+    return {"max_abs_err": abs_err, "max_err_vs_plain": rel_err,
+            "bitwise_vs_plain": same}
+
+
+def fused_case(c: Case, *, time_it: bool):
+    """dwt_fused / idwt_fused against their plain versions on c."""
+    import torch
+    from repro_torch.kernels import dwt_fused as dfk
+
+    tag = f"B={c.B:3d} {c.dname} V={c.V} K={c.shape[0]} J={c.shape[1]}"
+    recs, table = {}, None
+    for name, x, kern, plain in (
+            ("dwt_fused", c.rhs, dfk.dwt_fused, dfk.dwt_fused_plain),
+            ("idwt_fused", c.lhs, dfk.idwt_fused, dfk.idwt_fused_plain)):
+        run = lambda: kern(*c.args, x, c.l0s, B=c.B, tk=c.tk,  # noqa: E731
+                           perm=c.perm)
+        got = run()
+        want = c.plain(plain, x)
+        rec = compare(name, tag, got, want, c.dname)
         if name == "dwt_fused":       # the ragged skip writes exact zeros
-            lmask = torch.arange(B, device=dev)[None, :] < \
-                l0s.long().repeat_interleave(tk)[:, None]
-            if lmask.any() and got[lmask].abs().max() != 0:
-                fail(f"dwt_fused B={B}: rows below l0 are not zero")
-        log(f"  {name:10s} B={B:3d} {dname} V={V} K={K} J={J} C2={C2}: "
-            f"max|k-p|={abs_err:.3e} rel={rel_err:.3e} (tol {TOL[dname]:g})")
-        if not rel_err <= TOL[dname]:
-            fail(f"{name} B={B} {dname} V={V}: kernel disagrees with its "
-                 f"plain version: rel err {rel_err:.3e} > {TOL[dname]:g}")
-        rec = {"max_abs_err": abs_err, "max_err_vs_plain": rel_err,
-               "B": B, "dtype": dname, "V": V, "shape": [K, J, C2],
-               "rows": rows}
+            lmask = torch.arange(c.B, device=got.device)[None, :] < \
+                c.l0s.long().repeat_interleave(c.tk)[:, None]
+            if lmask.any() and c.sorted(got)[lmask].abs().max() != 0:
+                fail(f"dwt_fused B={c.B}: rows below l0 are not zero")
+        rec.update(B=c.B, dtype=c.dname, V=c.V, shape=c.shape, rows=c.rows)
         if time_it:
             if table is None:
-                table = ref.wigner_rec_table_ref(seeds, m, mp, cb, B)
-            lib_out = lib(table)
-            torch.cuda.synchronize()
-            rec["max_err_library_vs_plain"] = float((lib_out - want).abs().max())
+                table = c.table()
+            xs = c.sorted(x)
+            lib = (lambda: torch.bmm(table, xs)) if name == "dwt_fused" \
+                else (lambda: torch.bmm(table.transpose(1, 2), xs))
+            lib_out = lib()
+            rec["max_err_library_vs_plain"] = float(
+                (lib_out - c.sorted(want)).abs().max())
             del lib_out
-            rec["ms"] = cuda_ms(lambda: kern(*args, x, l0s, B=B, tk=tk), 5)
-            rec["plain_ms"] = cuda_ms(lambda: plain(*args, x, l0s, B=B, tk=tk), 1)
-            rec["library_ms"] = cuda_ms(lambda: lib(table), 3)
-            rec["bound_ms"], rec["bound_by"] = bound(name, seeds, x, got,
-                                                     rows, dname)
+            rec["ms"] = cuda_ms(run, 5)
+            rec["plain_ms"] = cuda_ms(lambda: c.plain(plain, x), 1)
+            rec["library_ms"] = cuda_ms(lib, 3)
+            rec["bound_ms"], rec["bound_by"] = bound(name, c.args[0], x, got,
+                                                     c.rows, c.dname)
             log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
                 f"  library(bmm) {rec['library_ms']:.4f} ms  bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
@@ -195,6 +331,167 @@ def kernel_case(B: int, dtype, V: int, *, time_it: bool, seed: int):
     return recs
 
 
+def streaming_case(c: Case, lchunk: int, precision: str, *, time_it: bool):
+    """build_windows / dwt_streaming / idwt_streaming against their plain
+    versions on c."""
+    import torch
+    from repro_torch.kernels import streaming as stk
+
+    tag = (f"B={c.B:3d} {c.dname} V={c.V} lchunk={lchunk} {precision} "
+           f"K={c.shape[0]}")
+    recs = {}
+    wkw = dict(L=c.B, lchunk=lchunk, precision=precision)
+    win = stk.build_windows(*c.args, **wkw)
+    win_plain = stk.build_windows_plain(*c.args, **wkw)
+    rec = compare("build_windows", tag, win, win_plain, c.dname, precision)
+    rec.update(B=c.B, dtype=c.dname, V=c.V, lchunk=lchunk,
+               precision=precision, shape=list(win.shape))
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: stk.build_windows(*c.args, **wkw), 5)
+        rec["plain_ms"] = cuda_ms(
+            lambda: stk.build_windows_plain(*c.args, **wkw), 1)
+        rec["library_ms"] = None          # no library call builds these
+        rec["bound_ms"], rec["bound_by"] = window_bound(
+            c.args[0], c.args[1], win, c.B, lchunk, c.dname)
+        log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+            f"  library none  bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    recs["build_windows"] = rec
+    del win_plain
+    wbytes = win.numel() * win.element_size()
+    kw = dict(lchunk=lchunk, precision=precision)
+    table = None
+    for name, x, kern, plain in (
+            ("dwt_streaming", c.rhs, stk.dwt_streaming,
+             stk.dwt_streaming_plain),
+            ("idwt_streaming", c.lhs, stk.idwt_streaming,
+             stk.idwt_streaming_plain)):
+        run = lambda: kern(*c.args, x, c.l0s, win, B=c.B,  # noqa: E731
+                           tk=c.tk, perm=c.perm, **kw)
+        got = run()
+        want = c.plain(plain, x, win, **kw)
+        rec = compare(name, tag, got, want, c.dname, precision)
+        rec.update(B=c.B, dtype=c.dname, V=c.V, lchunk=lchunk,
+                   precision=precision, shape=c.shape, rows=c.rows)
+        if time_it:
+            if table is None:
+                table = c.table(precision)
+            xs = c.sorted(x)
+            lib = (lambda: torch.bmm(table, xs)) if name == "dwt_streaming" \
+                else (lambda: torch.bmm(table.transpose(1, 2), xs))
+            rec["ms"] = cuda_ms(run, 5)
+            rec["plain_ms"] = cuda_ms(lambda: c.plain(plain, x, win, **kw), 1)
+            rec["library_ms"] = cuda_ms(lib, 3)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                name, c.args[0], x, got, c.rows, c.dname, wbytes)
+            log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+                f"  library(bmm) {rec['library_ms']:.4f} ms  bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        recs[name] = rec
+        del got, want
+    del table, win
+    torch.cuda.empty_cache()
+    return recs
+
+
+def rtz_bf16(x):
+    """x rounded toward zero to bfloat16 (through float32), in x's dtype."""
+    import torch
+    return (x.float().view(torch.int32) & -65536).view(torch.float32) \
+        .to(x.dtype)
+
+
+def planted_bf16_faults(c: Case, lchunk: int) -> dict:
+    """The bf16 limit against wrong roundings: each fault is planted in the
+    plain version (the comparison is symmetric, so this reads what the
+    same fault in the kernel would give), and every kernel must miss the
+    faulty plain version by more than TOL_BF16."""
+    import torch
+    from repro_torch.kernels import streaming as stk
+
+    tol = TOL_BF16[c.dname]
+    wkw = dict(L=c.B, lchunk=lchunk)
+    win = stk.build_windows(*c.args, precision="bf16", **wkw)
+    rel = lambda got, want: float(  # noqa: E731
+        (got.double() - want.double()).abs().max()
+        / want.double().abs().max())
+    res = {"build_windows": {"rtz": rel(win, rtz_bf16(
+        stk.build_windows_plain(*c.args, **wkw)).to(torch.bfloat16))}}
+
+    def half_rounded():                  # every other half of a kLT round
+        calls = iter(range(1 << 30))
+        return lambda row, precision: (
+            row.to(torch.bfloat16).to(row.dtype) if next(calls) % 8 < 4
+            else row)
+
+    kw = dict(lchunk=lchunk, precision="bf16")
+    rows = stk._rows
+    for name, x, kern, plain in (
+            ("dwt_streaming", c.rhs, stk.dwt_streaming,
+             stk.dwt_streaming_plain),
+            ("idwt_streaming", c.lhs, stk.idwt_streaming,
+             stk.idwt_streaming_plain)):
+        got = kern(*c.args, x, c.l0s, win, B=c.B, tk=c.tk, perm=c.perm, **kw)
+        res[name] = {}
+        for plant, fault in (
+                ("rtz", lambda row, precision: rtz_bf16(row)),
+                ("unrounded", lambda row, precision: row),
+                ("half_rounded", half_rounded())):
+            stk._rows = fault
+            try:
+                res[name][plant] = rel(got, c.plain(plain, x, win, **kw))
+            finally:
+                stk._rows = rows
+        del got
+    for name, faults in res.items():
+        for plant, r in faults.items():
+            log(f"  planted {plant:12s} {name:14s} B={c.B} {c.dname} "
+                f"lchunk={lchunk}: rel {r:.3e} (must exceed {tol:g})")
+            if not r > tol:
+                fail(f"TOL_BF16 {tol:g} does not reject a planted {plant} "
+                     f"rounding in {name} (rel {r:.3e})")
+    del win
+    torch.cuda.empty_cache()
+    return res
+
+
+def bitwise_streaming(B: int, V: int, dtype, lchunks, seed: int) -> dict:
+    """torch.equal(streaming, fused) on the card, fp32 precision."""
+    import torch
+    from repro_torch.kernels import dwt_fused as dfk, streaming as stk
+
+    c = Case(B, dtype, V, seed=seed)
+    kw = dict(B=B, tk=c.tk, perm=c.perm)
+    runs = {"dwt": lambda: dfk.dwt_fused(*c.args, c.rhs, c.l0s, **kw),
+            "idwt": lambda: dfk.idwt_fused(*c.args, c.lhs, c.l0s, **kw)}
+    fused = {d: run() for d, run in runs.items()}
+    res = {f"{d}_fused_ms": cuda_ms(run, 3) for d, run in runs.items()}
+    for lc in lchunks:
+        win = stk.build_windows(*c.args, L=B, lchunk=lc)
+        runs = {"dwt": lambda: stk.dwt_streaming(
+                    *c.args, c.rhs, c.l0s, win, lchunk=lc, **kw),
+                "idwt": lambda: stk.idwt_streaming(
+                    *c.args, c.lhs, c.l0s, win, lchunk=lc, **kw)}
+        got = {d: run() for d, run in runs.items()}
+        torch.cuda.synchronize()
+        for d in ("dwt", "idwt"):
+            same = bool(torch.equal(got[d], fused[d]))
+            diff = float((got[d] - fused[d]).abs().max())
+            res[f"{d}_l{lc}"] = same
+            res[f"{d}_l{lc}_ms"] = cuda_ms(runs[d], 3)
+            log(f"  {d}_streaming == {d}_fused  B={B} {c.dname} V={V} "
+                f"lchunk={lc}: {same} (max diff {diff:.3e}); "
+                f"{res[f'{d}_l{lc}_ms']:.4f} ms, fused "
+                f"{res[f'{d}_fused_ms']:.4f} ms")
+            if not same:
+                fail(f"{d}_streaming != {d}_fused bitwise at B={B} "
+                     f"{c.dname} lchunk={lc}")
+        del got, win
+    del fused, c
+    torch.cuda.empty_cache()
+    return res
+
+
 def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
     """Each grid-FFT stage of core.batched at plan(B)'s shapes: does one
     batched call over V grids give each grid bitwise what its own call
@@ -202,7 +499,7 @@ def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
     import torch
     from repro_torch.core import batched
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = 2 * B
@@ -236,51 +533,110 @@ def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
     return res
 
 
-def roundtrip_metric(fhat, back, mask):
+# ---------------------------------------------------------------------------
+# phases 4-6: the paths through repro_torch.plan
+# ---------------------------------------------------------------------------
+
+def reset_all_launches():
+    from repro_torch.kernels import dwt_fused as dfk, streaming as stk
+    dfk.reset_launches()
+    stk.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import dwt_fused as dfk, streaming as stk
+    return {**dfk.LAUNCHES, **stk.LAUNCHES}
+
+
+def roundtrip_metric(fhat, back):
     """The paper's Table-1 metric (benchmarks/error_table.py): max abs and
-    max relative error of forward(inverse(fhat)) over the valid cells."""
-    import numpy as np
-    err = np.abs(back - fhat)[mask]
-    ref = np.abs(fhat)[mask]
-    return float(err.max()), float((err / np.maximum(ref, 1e-300)).max())
+    max relative error of forward(inverse(fhat)) over the valid cells,
+    on the card, 32 degrees at a time."""
+    import torch
+    from repro_torch.core import soft
+    mask = soft.coeff_mask(fhat.shape[0])
+    abs_max = rel_max = 0.0
+    for l0 in range(0, fhat.shape[0], 32):
+        sl = slice(l0, l0 + 32)
+        err = (back[sl] - fhat[sl]).abs()
+        ref = fhat[sl].abs().clamp_min(1e-300)
+        msk = torch.as_tensor(mask[sl], device=fhat.device)
+        abs_max = max(abs_max, float(err[msk].max()))
+        rel_max = max(rel_max, float((err / ref)[msk].max()))
+        del err, ref
+    return abs_max, rel_max
+
+
+def device_coeffs(B: int, n: int, seed: int, cdtype):
+    """n random coefficient sets on the card, Re, Im ~ U[-1, 1] on the
+    valid cells (as soft.random_coeffs makes them on the host)."""
+    import torch
+    from repro_torch.core import soft
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rdt = torch.float64 if cdtype == torch.complex128 else torch.float32
+    shape = (n, B, 2 * B - 1, 2 * B - 1)
+    out = torch.complex(torch.rand(shape, generator=gen, device=dev,
+                                   dtype=rdt) * 2 - 1,
+                        torch.rand(shape, generator=gen, device=dev,
+                                   dtype=rdt) * 2 - 1)
+    out.mul_(torch.as_tensor(soft.coeff_mask(B), device=dev))
+    return out
+
+
+def peak_of(fn):
+    """(result, peak bytes allocated during fn, bytes allocated before)."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(), before
+
+
+def check_roundtrip(B, abs_err, rel_err):
+    a_gate, r_gate = RT_GATES[B]
+    if not abs_err <= a_gate or (r_gate is not None and not rel_err <= r_gate):
+        fail(f"B={B}: roundtrip abs {abs_err:.3e} rel {rel_err:.3e} over "
+             f"{a_gate:g} / {r_gate}")
 
 
 def main_path(B: int, n: int, counts: dict):
     """plan(B) at its defaults: inverse_batch of n random coefficient sets,
     then forward_batch; the launch counts are zeroed just before and read
-    just after."""
-    import numpy as np
+    just after, and the peak device memory of the pair is taken."""
     import torch
     import repro_torch
-    from repro_torch.core import soft
-    from repro_torch.kernels import dwt_fused as dfk
 
     t = repro_torch.plan(B)
-    fhats = np.stack([soft.random_coeffs(B, s) for s in range(n)])
-    dfk.reset_launches()
-    fs = t.inverse_batch(fhats)
-    backs = t.forward_batch(fs)
-    torch.cuda.synchronize()
-    counts.update(dfk.LAUNCHES)
+    fhats = device_coeffs(B, n, 0, t.cdtype)
+    reset_all_launches()
+    def pair():
+        fs = t.inverse_batch(fhats)
+        return fs, t.forward_batch(fs)
+
+    (fs, backs), peak, before = peak_of(pair)
+    counts.update(all_launches())
     d = t.describe()
     log(f"  plan({B}): impl={d['impl']} V={d['V']} tk={d['tk']} "
-        f"streaming={d['streaming']} smem={d['smem_bytes']} B/block "
-        f"launches={counts}")
+        f"lchunk={d['lchunk']} streaming={d['streaming']} smem="
+        f"{d['smem_bytes']} B/block launches={counts}")
+    mem = {"peak_bytes": peak, "before_bytes": before,
+           "estimate_bytes": d["batch_bytes"]}
+    log(f"  peak device memory {peak} bytes (before {before}) vs "
+        f"estimate_batch_bytes {d['batch_bytes']}")
     if fs.shape != (n, 2 * B, 2 * B, 2 * B) or \
             backs.shape != (n, B, 2 * B - 1, 2 * B - 1):
         fail(f"main path B={B}: shapes {tuple(fs.shape)} {tuple(backs.shape)}")
     if not (torch.isfinite(fs.real).all() and torch.isfinite(backs.real).all()):
         fail(f"main path B={B}: non-finite values")
-    mask = soft.coeff_mask(B)
-    backs_np = backs.cpu().numpy()
-    worst = [roundtrip_metric(fhats[i], backs_np[i], mask) for i in range(n)]
+    worst = [roundtrip_metric(fhats[i], backs[i]) for i in range(n)]
     abs_err = max(w[0] for w in worst)
     rel_err = max(w[1] for w in worst)
     log(f"  roundtrip (paper Table-1 metric, worst of {n}): abs {abs_err:.3e}"
         f"  rel {rel_err:.3e}")
-    if not (abs_err <= 1e-12 and rel_err <= 1e-9):
-        fail(f"main path B={B}: roundtrip abs {abs_err:.3e} rel {rel_err:.3e}"
-             f" over 1e-12 / 1e-9")
+    check_roundtrip(B, abs_err, rel_err)
     f0 = t.inverse(fhats[0])
     b0 = t.forward(fs[0])
     for what, a, b in (("inverse", fs[0], f0), ("forward", backs[0], b0)):
@@ -289,44 +645,217 @@ def main_path(B: int, n: int, counts: dict):
         if not diff <= 1e-12:
             fail(f"main path B={B}: batched lane 0 != single {what} "
                  f"(rel {diff:.3e})")
-    fh_dev = torch.as_tensor(fhats, device=t.device)
     timing = {
-        "inverse_batch_ms": host_ms(lambda: t.inverse_batch(fh_dev), 3),
+        "inverse_batch_ms": host_ms(lambda: t.inverse_batch(fhats), 3),
         "forward_batch_ms": host_ms(lambda: t.forward_batch(fs), 3),
+        "roundtrip_abs": abs_err, "roundtrip_rel": rel_err, "memory": mem,
     }
     log(f"  main path B={B}: inverse_batch({n}) {timing['inverse_batch_ms']:.2f}"
         f" ms, forward_batch({n}) {timing['forward_batch_ms']:.2f} ms (host "
         f"clock, synchronized)")
-    return t, fs, timing
+    if peak > d["batch_bytes"]:
+        fail(f"B={B} V={d['V']}: peak device memory {peak} over "
+             f"estimate_batch_bytes {d['batch_bytes']}")
+    return t, fhats, fs, backs, timing
+
+
+def streaming_path(B, fhats, fs_ref, backs_ref, counts: dict) -> dict:
+    """plan(B, lchunk=16) equal to phase 4's plan(B) bit for bit, and
+    plan(B, float32, precision="bf16") within its error bound of the fp32
+    plan, both batched; launch counts zeroed just before, read just
+    after."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import autotune
+
+    reset_all_launches()
+    t16 = repro_torch.plan(B, lchunk=16)
+    fs = t16.inverse_batch(fhats)
+    backs = t16.forward_batch(fs)
+    tb = repro_torch.plan(B, torch.float32, precision="bf16")
+    t32 = repro_torch.plan(B, torch.float32)
+    fh32 = fhats.to(torch.complex64)
+    f_bf, f_32 = tb.inverse_batch(fh32), t32.inverse_batch(fh32)
+    b_bf, b_32 = tb.forward_batch(f_32), t32.forward_batch(f_32)
+    torch.cuda.synchronize()
+    counts.update(all_launches())
+    d16, dbf = t16.describe(), tb.describe()
+    log(f"  plan({B}, lchunk=16): V={d16['V']} window_bytes="
+        f"{d16['window_bytes']}; plan({B}, float32, precision='bf16'): "
+        f"V={dbf['V']} lchunk={dbf['lchunk']} window_bytes="
+        f"{dbf['window_bytes']}; launches={counts}")
+    for what, a, b in (("inverse_batch", fs, fs_ref),
+                       ("forward_batch", backs, backs_ref)):
+        same = bool(torch.equal(a, b))
+        log(f"  plan({B}, lchunk=16).{what} == plan({B}).{what}: {same}")
+        if not same:
+            fail(f"plan({B}, lchunk=16).{what} differs from plan({B})")
+    bound_ = autotune.PRECISION_ERROR_BOUNDS[B]
+    res = {}
+    for what, a, b in (("inverse", f_bf, f_32), ("forward", b_bf, b_32)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        res[f"bf16_{what}_rel"] = rel
+        log(f"  bf16 {what}_batch vs fp32: max|d| / max|fp32| = {rel:.3e} "
+            f"(bound {bound_:g})")
+        if not 0 < rel <= bound_:
+            fail(f"bf16 {what} error {rel:.3e} outside (0, {bound_:g}]")
+    res.update(
+        lchunk16_inverse_batch_ms=host_ms(lambda: t16.inverse_batch(fhats), 3),
+        lchunk16_forward_batch_ms=host_ms(lambda: t16.forward_batch(fs), 3),
+        bf16_inverse_batch_ms=host_ms(lambda: tb.inverse_batch(fh32), 3),
+        bf16_forward_batch_ms=host_ms(lambda: tb.forward_batch(f_32), 3),
+        fp32_inverse_batch_ms=host_ms(lambda: t32.inverse_batch(fh32), 3),
+        fp32_forward_batch_ms=host_ms(lambda: t32.forward_batch(f_32), 3))
+    log("  " + ", ".join(f"{k} {v:.2f}" for k, v in res.items()
+                         if k.endswith("_ms")) + " (host clock)")
+    for k in ("lchunk", "precision", "window_bytes", "batch_bytes"):
+        res[f"lchunk16_{k}"], res[f"bf16_{k}"] = d16[k], dbf[k]
+    del t16, tb, t32, fs, backs, f_bf, f_32, b_bf, b_32
+    torch.cuda.empty_cache()
+    return res
 
 
 def single_roundtrip(B: int):
-    import numpy as np
     import torch
     import repro_torch
-    from repro_torch.core import soft
-    from repro_torch.kernels import dwt_fused as dfk
 
     t = repro_torch.plan(B)
-    fhat = soft.random_coeffs(B, 0)
-    dfk.reset_launches()
+    fhat = device_coeffs(B, 1, 0, t.cdtype)[0]
+    reset_all_launches()
     back = t.forward(t.inverse(fhat))
     torch.cuda.synchronize()
-    counts = dict(dfk.LAUNCHES)
-    back = back.cpu().numpy()
-    if not np.isfinite(back).all():
+    counts = all_launches()
+    if not torch.isfinite(back.real).all():
         fail(f"B={B}: non-finite roundtrip")
-    abs_err, rel_err = roundtrip_metric(fhat, back, soft.coeff_mask(B))
+    abs_err, rel_err = roundtrip_metric(fhat, back)
     log(f"  plan({B}) single inverse -> forward: abs {abs_err:.3e} rel "
         f"{rel_err:.3e} launches={counts}")
-    if not abs_err <= 5e-12:
-        fail(f"B={B}: roundtrip abs err {abs_err:.3e} > 5e-12")
-    if min(counts.values()) < 1:
+    check_roundtrip(B, abs_err, rel_err)
+    if min(counts["dwt_fused"], counts["idwt_fused"]) < 1:
         fail(f"B={B}: a kernel of the path never launched: {counts}")
-    fh_dev = torch.as_tensor(fhat, device=t.device)
-    ms = host_ms(lambda: t.forward(t.inverse(fh_dev)), 2)
+    ms = host_ms(lambda: t.forward(t.inverse(fhat)), 2)
     log(f"  plan({B}) single inverse + forward: {ms:.2f} ms (host clock)")
-    return counts, ms
+    return counts, ms, (abs_err, rel_err)
+
+
+def bf16_error(B: int) -> dict:
+    """plan(B, float32, precision="bf16") against plan(B, float32), one
+    inverse and one forward: max|bf16 - fp32| / max|fp32|, held to
+    PRECISION_ERROR_BOUNDS[B] (the reference's gate; at B = 256 and 512
+    an extrapolation, autotune.PRECISION_BOUND_EXTRAPOLATED)."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import autotune
+
+    tb = repro_torch.plan(B, torch.float32, precision="bf16")
+    t32 = repro_torch.plan(B, torch.float32)
+    fhat = device_coeffs(B, 1, B + 1, torch.complex64)[0]
+    f32 = t32.inverse(fhat)
+    res = {"inverse": tb.inverse(fhat), "forward": tb.forward(f32)}
+    ref = {"inverse": f32, "forward": t32.forward(f32)}
+    out = {"lchunk": tb.schedule.lchunk,
+           "bound": autotune.PRECISION_ERROR_BOUNDS[B],
+           "bound_extrapolated": B in autotune.PRECISION_BOUND_EXTRAPOLATED}
+    for what in ("inverse", "forward"):
+        a, b = res[what], ref[what]
+        out[what] = float((a - b).abs().max() / b.abs().max())
+        log(f"  plan({B}, float32, bf16) {what} vs fp32: {out[what]:.3e} "
+            f"(bound {out['bound']:g}"
+            f"{', extrapolated' if out['bound_extrapolated'] else ''})")
+        if not 0 < out[what] <= out["bound"]:
+            fail(f"B={B} bf16 {what} error {out[what]:.3e} outside "
+                 f"(0, {out['bound']:g}]")
+    del tb, t32, res, ref, f32, fhat
+    torch.cuda.empty_cache()
+    return out
+
+
+def big_roundtrip(B: int, mem128: dict) -> dict:
+    """plan(B) f64 V = 1 (B = 512 on the card): one inverse -> forward, the
+    peak device memory of each against estimate_batch_bytes, then the
+    fused kernels alone at the full V = 1 shape."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import dwt_fused as dfk, ops
+
+    t0 = time.perf_counter()
+    t = repro_torch.plan(B)
+    d = t.describe()
+    est = d["batch_bytes"]
+    log(f"  plan({B}): V={d['V']} lchunk={d['lchunk']} smem={d['smem_bytes']}"
+        f" estimate_batch_bytes={est} device total "
+        f"{torch.cuda.get_device_properties(0).total_memory} "
+        f"(planned in {time.perf_counter() - t0:.1f} s)")
+    fhat = device_coeffs(B, 1, B, t.cdtype)[0]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    f, peak_inv, before_inv = peak_of(lambda: t.inverse(fhat))
+    inv_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back, peak_fwd, before_fwd = peak_of(lambda: t.forward(f))
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    counts = all_launches()
+    if not (torch.isfinite(f.real).all() and torch.isfinite(back.real).all()):
+        fail(f"B={B}: non-finite values")
+    abs_err, rel_err = roundtrip_metric(fhat, back)
+    log(f"  plan({B}) inverse -> forward: abs {abs_err:.3e} rel {rel_err:.3e}"
+        f" launches={counts}; first calls: inverse {inv_ms:.1f} ms, forward "
+        f"{fwd_ms:.1f} ms (host clock)")
+    log(f"  peak device memory: inverse {peak_inv} (before {before_inv}), "
+        f"forward {peak_fwd} (before {before_fwd}); estimate {est}")
+    log(f"  B=128 V=8 (phase 4): peak {mem128['peak_bytes']} (before "
+        f"{mem128['before_bytes']}); estimate {mem128['estimate_bytes']}")
+    check_roundtrip(B, abs_err, rel_err)
+    if min(counts["dwt_fused"], counts["idwt_fused"]) < 1:
+        fail(f"B={B}: a kernel of the path never launched: {counts}")
+    if max(peak_inv, peak_fwd) > est:
+        fail(f"B={B}: peak device memory {max(peak_inv, peak_fwd)} over "
+             f"estimate_batch_bytes {est}")
+    del back, f          # one grid at a time: B = 512 fills the card
+    t0 = time.perf_counter()
+    f = t.inverse(fhat)
+    torch.cuda.synchronize()
+    inv2_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = t.forward(f)
+    torch.cuda.synchronize()
+    fwd2_ms = (time.perf_counter() - t0) * 1e3
+    del back
+    log(f"  second calls: inverse {inv2_ms:.1f} ms, forward {fwd2_ms:.1f} ms "
+        f"(host clock)")
+    del f, fhat
+    torch.cuda.empty_cache()
+
+    # the fused kernels alone at the full shape (launch order via perm)
+    sp = t.soft_plan
+    seeds, m, mp, cb, l0s, perm = ops.launch_inputs(sp, t.schedule.tk)
+    gen = torch.Generator(device=DEV).manual_seed(5120)
+    K, J = seeds.shape
+    full = {}
+    rows = visited_rows(m, l0s, t.schedule.tk, B)
+    for name, A, kern in (("dwt_fused", J, dfk.dwt_fused),
+                          ("idwt_fused", B, dfk.idwt_fused)):
+        x = torch.randn((K, A, 16), generator=gen, device=DEV,
+                        dtype=torch.float64)
+        run = lambda: kern(seeds, m, mp, cb, x, l0s, B=B,  # noqa: E731
+                           tk=t.schedule.tk, perm=perm)
+        y = run()
+        ms = cuda_ms(run, 1)
+        bms, by = bound(name, seeds, x, y, rows, "float64")
+        full[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                      "shape": [K, J, 16], "rows": rows}
+        log(f"  {name} at B={B} f64 V=1 (K={K}, J={J}): {ms:.2f} ms, bound "
+            f"{bms:.3f} ms ({by})")
+        del x, y
+        torch.cuda.empty_cache()
+    return {"roundtrip_abs": abs_err, "roundtrip_rel": rel_err,
+            "inverse_ms_first": inv_ms, "forward_ms_first": fwd_ms,
+            "inverse_ms": inv2_ms, "forward_ms": fwd2_ms,
+            "peak_inverse_bytes": peak_inv, "peak_forward_bytes": peak_fwd,
+            "before_inverse_bytes": before_inv,
+            "before_forward_bytes": before_fwd,
+            "estimate_bytes": est, "launches": counts,
+            "kernels_full_shape": full}
 
 
 _BUCKETS = (("fused DWT kernels", ("dwt_fused",)),
@@ -410,29 +939,60 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = runtime.build_all(verbose=True)
     log(f"  built {list(logs)} in {time.perf_counter() - t0:.1f} s")
+    OUT.mkdir(exist_ok=True)
     for name, text in logs.items():
+        (OUT / f"ptxas_{name}.txt").write_text(text)
+        for line in ptxas_summary(name, text):
+            log(line)
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "error" in line:
                 log(f"  [{name}] {line.strip()}")
-    lib = runtime.library("dwt_fused")
     import ctypes
-    lib.dwt_fused_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.dwt_fused_smem_bytes.restype = ctypes.c_longlong
-    for J in (8, 256, 512, 1024):
-        for itemsize in (4, 8):
-            for inv in (0, 1):
-                c = lib.dwt_fused_smem_bytes(J, itemsize, inv)
-                p = autotune.estimate_smem_bytes(J, itemsize, inverse=bool(inv))
-                if c != p:
-                    fail(f"shared-memory estimate {p} != kernel's {c} "
-                         f"(J={J}, itemsize={itemsize}, inverse={inv})")
+    for lib_name, sym, est in (
+            ("dwt_fused", "dwt_fused_smem_bytes", autotune.estimate_smem_bytes),
+            ("streaming", "streaming_smem_bytes",
+             autotune.estimate_smem_bytes)):
+        fn = getattr(runtime.library(lib_name), sym)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+        for J in (8, 256, 512, 1024):
+            for itemsize in (4, 8):
+                for inv in (0, 1):
+                    c = fn(J, itemsize, inv)
+                    p = est(J, itemsize, inverse=bool(inv))
+                    if c != p:
+                        fail(f"{sym}: estimate {p} != kernel's {c} (J={J}, "
+                             f"itemsize={itemsize}, inverse={inv})")
+    log("  shared-memory estimates agree with both libraries")
 
     log("== 3. kernels against their plain versions")
-    for B, dt, V in ((4, torch.float64, 1), (8, torch.float32, 2),
-                     (16, torch.float64, 3), (32, torch.float64, 1)):
-        kernel_case(B, dt, V, time_it=False, seed=B)
-    recs = kernel_case(128, torch.float64, 8, time_it=True, seed=128)
-    recs32 = kernel_case(64, torch.float32, 8, time_it=True, seed=64)
+    for B, dt, V, lc, prec in ((4, torch.float64, 1, 1, "fp32"),
+                               (8, torch.float32, 2, 2, "bf16"),
+                               (16, torch.float64, 3, 4, "fp32"),
+                               (32, torch.float64, 1, 32, "bf16"),
+                               (32, torch.float32, 1, 8, "fp32")):
+        c = Case(B, dt, V, seed=B)
+        fused_case(c, time_it=False)
+        streaming_case(c, lc, prec, time_it=False)
+        del c
+    c = Case(128, torch.float64, 8, seed=128)
+    recs = fused_case(c, time_it=True)
+    srecs = streaming_case(c, 16, "fp32", time_it=True)
+    del c
+    c = Case(64, torch.float32, 8, seed=64)
+    recs32 = fused_case(c, time_it=True)
+    srecs32 = streaming_case(c, 16, "fp32", time_it=True)
+    del c
+    c = Case(128, torch.float32, 8, seed=129)
+    srecs_bf = streaming_case(c, 128, "bf16", time_it=True)
+    srecs_bf16c = streaming_case(c, 16, "bf16", time_it=False)
+    planted = planted_bf16_faults(c, 16)
+    del c
+    c = Case(512, torch.float64, 1, seed=512, subset=2048)
+    recs1024 = fused_case(c, time_it=True)
+    srecs1024 = streaming_case(c, 64, "fp32", time_it=False)
+    del c
+    torch.cuda.empty_cache()
 
     log("== 3b. batched cuFFT against one call per grid")
     fft_lanes = {f"B{B}_{str(dt)[6:]}_V{V}": fft_lane_check(B, V, dt, seed=B)
@@ -440,55 +1000,91 @@ def main() -> int:
                                   (64, torch.float64, 8),
                                   (64, torch.float32, 8))}
 
+    log("== 3c. streaming kernels == fused kernels, bit for bit")
+    bitwise = {}
+    for dt in (torch.float64, torch.float32):
+        bitwise[str(dt)[6:]] = bitwise_streaming(128, 8, dt, (8, 32, 128),
+                                                 seed=1280)
+
     log("== 4. main path: plan(128), inverse_batch(8) -> forward_batch")
     counts = {}
-    t128, fs128, timing = main_path(128, 8, counts)
-    for name in KERNELS:
+    t128, fhats128, fs128, backs128, timing = main_path(128, 8, counts)
+    for name in ("dwt_fused", "idwt_fused"):
         if counts.get(name, 0) < 1:
             fail(f"main path: kernel {name} never launched ({counts})")
     if args.profile:
         timing["profile"] = profile(t128, fs128, ROOT / args.profile_out)
-    del t128, fs128
+
+    log("== 4b. streaming path: plan(128, lchunk=16), "
+        "plan(128, float32, precision='bf16')")
+    scounts = {}
+    stiming = streaming_path(128, fhats128, fs128, backs128, scounts)
+    for name in ("build_windows", "dwt_streaming", "idwt_streaming"):
+        if scounts.get(name, 0) < 1:
+            fail(f"streaming path: kernel {name} never launched ({scounts})")
+    del t128, fhats128, fs128, backs128
     torch.cuda.empty_cache()
 
-    log("== 5. plan(256): single inverse -> forward")
-    counts256, ms256 = single_roundtrip(256)
-
-    log("== 6. plan(512): refused while one transform does not fit the card")
-    import repro_torch
-    try:
-        repro_torch.plan(512)
-    except ValueError as e:
-        log(f"  refused: {e}")
-    else:
-        fail("plan(512) was planned: drive it here in place of this check")
+    log("== 5. plan(256): single inverse -> forward; bf16 against fp32")
+    counts256, ms256, rt256 = single_roundtrip(256)
+    bf16_256 = bf16_error(256)
     torch.cuda.empty_cache()
 
+    log("== 6. plan(512) f64: one inverse -> forward on one card")
+    r512 = big_roundtrip(512, timing["memory"])
+    torch.cuda.empty_cache()
+
+    main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
+                   **{k: scounts[k] for k in ("build_windows",
+                                              "dwt_streaming",
+                                              "idwt_streaming")}}
+    at_keys = ("B", "dtype", "V", "shape", "rows", "lchunk", "precision")
     kernels = []
     for name, meta in KERNELS.items():
-        r = recs[name]
+        main_rec = {**recs, **srecs}[name]
+        extra = {
+            "f32_B64": {**recs32, **srecs32}[name],
+            "B512_subset_J1024": {**recs1024, **srecs1024}[name],
+        }
+        if name in srecs_bf:
+            extra["bf16_B128_f32"] = srecs_bf[name]
+            extra["bf16_B128_f32_lchunk16"] = srecs_bf16c[name]
+        if name in r512["kernels_full_shape"]:
+            extra["B512_full_f64_V1"] = r512["kernels_full_shape"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": counts[name],
-            "max_abs_err": r["max_abs_err"],
-            "max_err_vs_plain": r["max_err_vs_plain"],
-            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "library": "torch.bmm against wigner_rec_table_ref's (K, L, J) table",
-            "max_err_library_vs_plain": r["max_err_library_vs_plain"],
-            "at": {k: r[k] for k in ("B", "dtype", "V", "shape", "rows")},
-            "f32_B64": {k: recs32[name][k] for k in
-                        ("max_err_vs_plain", "ms", "plain_ms", "library_ms",
-                         "bound_ms", "bound_by")},
-            "launches_b256_single": counts256[name],
+            "replaces": meta["replaces"], "launches": main_counts[name],
+            "max_abs_err": main_rec["max_abs_err"],
+            "max_err_vs_plain": main_rec["max_err_vs_plain"],
+            "ms": main_rec["ms"], "kernel_ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+            "library": None if name == "build_windows" else
+            "torch.bmm against wigner_rec_table_ref's (K, L, J) table",
+            "at": {k: main_rec[k] for k in at_keys if k in main_rec},
+            "more": {k: {kk: v.get(kk) for kk in
+                         ("max_err_vs_plain", "ms", "plain_ms", "library_ms",
+                          "bound_ms", "bound_by", "B", "dtype", "V", "lchunk",
+                          "precision", "shape") if kk in v}
+                     for k, v in extra.items()},
+            "launches_b256_single": counts256.get(name, 0),
+            "launches_b512_single": r512["launches"].get(name, 0),
         })
-    summary = {"main_path_b128_v8": timing, "b256_single_roundtrip_ms": ms256,
-               "fft_lanes": fft_lanes,
+    summary = {"main_path_b128_v8": timing, "streaming_path_b128": stiming,
+               "b256_single_roundtrip_ms": ms256,
+               "b256_roundtrip": rt256, "b256_bf16": bf16_256, "b512": {k: v for k, v in r512.items()
+                                                 if k != "kernels_full_shape"},
+               "fft_lanes": fft_lanes, "streaming_equals_fused": bitwise,
+               "bf16_planted_faults_b128_f32": planted,
+               "tol_bf16": TOL_BF16,
                "wall_s": time.perf_counter() - t_start}
+    (OUT / "chip_smoke_summary.json").write_text(json.dumps(
+        {"summary": summary, "kernels": kernels}, indent=1))
     log(json.dumps({"summary": summary}))
-    log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

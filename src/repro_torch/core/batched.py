@@ -341,45 +341,52 @@ def _at_members(plan: SoftPlan, S: torch.Tensor) -> torch.Tensor:
 
 
 def _rhs_from_members(plan: SoftPlan, Sm: torch.Tensor, w: torch.Tensor):
-    """(..., K, C, j) complex -> rhs (..., K, j, C, 2) real."""
+    """(..., K, C, j) complex -> rhs (..., K, j, C, 2) real, a view of the
+    weighted member values."""
     Sm = Sm * (plan.sign[..., None] * w)
-    rhs = torch.stack([Sm.real, Sm.imag], dim=-1)        # (..., K, C, j, 2)
-    return rhs.transpose(-3, -2)                          # (..., K, j, C, 2)
-
-
-def _gather_rhs_slab(plan: SoftPlan, S_direct, S_mirror, j0: int, j1: int):
-    """rhs[..., j0:j1, :, :] from the direct S slab [j0, j1) and its mirror
-    slab [J-j1, J-j0) (reversed for reflected members)."""
-    direct = _at_members(plan, S_direct)
-    mirror = _at_members(plan, S_mirror).flip(-1)
-    Sm = torch.where(plan.reflected[..., None], mirror, direct)
-    return _rhs_from_members(plan, Sm, plan.w[j0:j1])
+    return torch.view_as_real(Sm).transpose(-3, -2)       # (..., K, j, C, 2)
 
 
 def streamed_rhs(plan: SoftPlan, f: torch.Tensor) -> torch.Tensor:
     """FFT-analysis + gather, streamed in beta slabs: equal to
-    _gather_rhs(plan, fft_analysis(f)) with O((2B)^2 * slab) intermediates."""
+    _gather_rhs(plan, fft_analysis(f)), written slab by slab into one
+    (..., K, J, C, 2) buffer, with O((2B)^2 * slab) intermediates."""
     J = 2 * plan.B
-    parts = []
+    K, C = plan.gather_m.shape
+    rhs = torch.empty(f.shape[:-3] + (K, J, C, 2), dtype=plan.dtype,
+                      device=f.device)
     for j0, j1 in _slab_bounds(J):
         S_direct = fft_analysis_slab(f, j0, j1)
+        direct = _at_members(plan, S_direct)
+        del S_direct
         S_mirror = fft_analysis_slab(f, J - j1, J - j0)
-        parts.append(_gather_rhs_slab(plan, S_direct, S_mirror, j0, j1))
-    return torch.cat(parts, dim=-3)
+        mirror = _at_members(plan, S_mirror).flip(-1)
+        del S_mirror
+        Sm = torch.where(plan.reflected[..., None], mirror, direct)
+        del direct, mirror
+        rhs[..., j0:j1, :, :] = _rhs_from_members(plan, Sm, plan.w[j0:j1])
+        del Sm
+    return rhs
 
 
 def streamed_synthesis(plan: SoftPlan, gc: torch.Tensor) -> torch.Tensor:
     """Scatter-to-bins + FFT-synthesis, streamed in beta slabs: equal to
-    fft_synthesis(_scatter_bins(plan, gc)) without the monolithic
-    (2B+1, 2B, 2B+1) bin buffer."""
+    fft_synthesis(_scatter_bins(plan, gc)), written slab by slab into one
+    (..., 2B, 2B, 2B) grid, without the monolithic (2B+1, 2B, 2B+1) bin
+    buffer."""
     J = 2 * plan.B
-    parts = []
+    out = torch.empty(gc.shape[:-3] + (J, J, J), dtype=gc.dtype,
+                      device=gc.device)
     for j0, j1 in _slab_bounds(J):
         direct = gc[..., j0:j1, :]
         mirror = gc[..., J - j1:J - j0, :].flip(-2)
         gs = torch.where(plan.reflected[:, None, :], mirror, direct)
-        parts.append(fft_synthesis(_scatter_bins_nomirror(plan, gs)))
-    return torch.cat(parts, dim=-2)
+        del mirror
+        bins = _scatter_bins_nomirror(plan, gs)
+        del gs
+        out[..., j0:j1, :] = fft_synthesis(bins)
+        del bins
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -433,12 +440,15 @@ def _scatter_coeffs(plan: SoftPlan, out: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_coeffs(plan: SoftPlan, fhat: torch.Tensor) -> torch.Tensor:
-    """Gather lhs[..., k, l, c] = sign * (-1)^{l if reflected} * fhat(member)."""
+    """Gather lhs[..., k, l, c] = sign * (-1)^{l if reflected} * fhat(member)
+    as a contiguous (..., K, L, C, 2) real view of one complex buffer."""
     fpad = torch.nn.functional.pad(fhat, (0, 1, 0, 1))   # trash cell reads 0
-    lhs = fpad.movedim(-3, -1)[..., plan.scatter_m, plan.scatter_mp, :]
-    lhs = lhs.transpose(-1, -2)                           # (..., K, L, C)
+    ls = torch.arange(plan.B, device=fhat.device)[None, :, None]
+    lhs = fpad[..., ls, plan.scatter_m[:, None, :],
+               plan.scatter_mp[:, None, :]]               # (..., K, L, C)
+    del fpad
     lhs = lhs * (_out_sign(plan) * plan.sign[:, None, :])
-    return torch.stack([lhs.real, lhs.imag], dim=-1)      # (..., K, L, C, 2)
+    return torch.view_as_real(lhs)                        # (..., K, L, C, 2)
 
 
 def _scatter_bins_nomirror(plan: SoftPlan, g: torch.Tensor) -> torch.Tensor:
@@ -475,19 +485,34 @@ def _require_recurrence_fn(plan: SoftPlan, fn, which: str):
             f"(kernels.ops.make_{which}(..., impl='fused'))")
 
 
+def _as_complex(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2) real -> complex: a view where the strides allow one (the
+    kernels' outputs), else a view of a contiguous copy."""
+    if x.stride(-1) != 1 or x.storage_offset() % 2 or \
+            any(st % 2 for st in x.stride()[:-1]):
+        x = x.contiguous()
+    return torch.view_as_complex(x)
+
+
+# Each stage below drops its operand as soon as the next buffer exists:
+# at B = 512 one (K, J, C, 2) f64 stack is 17 GB of the card's 80.
+
 def _forward(plan: SoftPlan, f: torch.Tensor, dwt_fn) -> torch.Tensor:
     _require_recurrence_fn(plan, dwt_fn, "dwt_fn")
     rhs = streamed_rhs(plan, f) if plan.streaming \
         else _gather_rhs(plan, fft_analysis(f))
     out = dwt_apply(plan, rhs) if dwt_fn is None else dwt_fn(plan, rhs)
-    return _scatter_coeffs(plan, torch.complex(out[..., 0], out[..., 1]))
+    del rhs
+    return _scatter_coeffs(plan, _as_complex(out))
 
 
 def _inverse(plan: SoftPlan, fhat: torch.Tensor, idwt_fn) -> torch.Tensor:
     _require_recurrence_fn(plan, idwt_fn, "idwt_fn")
     lhs = _gather_coeffs(plan, fhat)
     g = idwt_apply(plan, lhs) if idwt_fn is None else idwt_fn(plan, lhs)
-    gc = torch.complex(g[..., 0], g[..., 1])
+    del lhs
+    gc = _as_complex(g)
+    del g
     if plan.streaming:
         return streamed_synthesis(plan, gc)
     return fft_synthesis(_scatter_bins(plan, gc))

@@ -13,6 +13,9 @@ Three evaluation routes, all validated against each other in tests:
     fundamental domain 0 <= m' <= m < B, packed as d[P, L, J]; the seven
     symmetries (paper Eq. 3) recover every other order pair.  This is the
     table the clustered DWT consumes.
+  * :func:`wigner_window_iter` / :func:`wigner_window_table` -- the same
+    march, emitting only the (d_{l-1}, d_l) state at each l-chunk
+    boundary: the host oracle of the streaming kernels' window stack.
 
 Conventions: l < B, |m|,|m'| <= l, beta on the 2B-point Kostelec grid.
 """
@@ -28,6 +31,8 @@ __all__ = [
     "wigner_d_table",
     "fundamental_pairs",
     "wigner_d_fundamental",
+    "wigner_window_iter",
+    "wigner_window_table",
 ]
 
 
@@ -239,3 +244,70 @@ def wigner_d_fundamental(B: int, beta: np.ndarray | None = None,
         pairs.flags.writeable = False
         _FUND_CACHE[key] = (table, pairs)
     return table, pairs
+
+
+# ---------------------------------------------------------------------------
+# chunk-boundary windows (host oracle of the streaming kernels)
+# ---------------------------------------------------------------------------
+
+def wigner_window_iter(B: int, lchunk: int,
+                       beta: np.ndarray | None = None):
+    """Generator of chunk-boundary recurrence windows, O(P * J) state.
+
+    Yields nL = B/lchunk arrays of shape (2, P, J): chunk c's
+    (d_{l-1}, d_l) three-term-recurrence state at the start of degree
+    l = c*lchunk for every fundamental pair p (zeros where the pair has
+    not activated, i.e. l <= m_p); chunk 0 is all zeros.  Each yield is
+    one window a consumer stages to the device and may drop at once, so
+    neither the (P, B, J) dense table nor the (nL, 2, P, J) window stack
+    has to exist on the host.
+    """
+    from . import quadrature
+
+    lchunk = int(lchunk)
+    if not 1 <= lchunk <= B or B % lchunk:
+        raise ValueError(f"lchunk={lchunk} must divide B={B}")
+    beta = quadrature.betas(B) if beta is None \
+        else np.asarray(beta, dtype=np.float64)
+    J = len(beta)
+    pairs = fundamental_pairs(B)
+    P = len(pairs)
+    m, mp = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
+    seeds = np.zeros((P, J))
+    for p in range(P):
+        seeds[p] = wigner_seed(int(m[p]), int(mp[p]), beta)
+
+    nL = B // lchunk
+    cb = np.cos(beta)[None, :]
+    d_prev = np.zeros((P, J))
+    d_cur = np.zeros((P, J))
+    yield np.zeros((2, P, J))           # chunk 0 carries no history
+    # boundaries past (nL-1)*lchunk are never read; stop the march there.
+    for l in range((nL - 1) * lchunk):
+        starting = (m == l)
+        if starting.any():
+            d_cur[starting] = seeds[starting]
+            d_prev[starting] = 0.0
+        active = (m <= l)
+        A, mu, C = recurrence_coeffs(np.float64(l), m.astype(np.float64),
+                                     mp.astype(np.float64))
+        d_next = A[:, None] * (cb - mu[:, None]) * d_cur - C[:, None] * d_prev
+        d_prev = np.where(active[:, None], d_cur, 0.0)
+        d_cur = np.where(active[:, None], d_next, 0.0)
+        if (l + 1) % lchunk == 0:
+            yield np.stack([d_prev, d_cur])
+
+
+def wigner_window_table(B: int, lchunk: int,
+                        beta: np.ndarray | None = None
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Chunk-boundary recurrence windows on the fundamental domain.
+
+    Returns (windows, pairs), windows of shape (nL, 2, P, J): the stacked
+    output of :func:`wigner_window_iter`.  The float64 oracle that the
+    streaming kernels' window builder
+    (:func:`repro_torch.kernels.streaming.build_windows`) is tested
+    against; large-B consumers iterate :func:`wigner_window_iter`.
+    """
+    windows = np.stack(list(wigner_window_iter(B, lchunk, beta)))
+    return windows, fundamental_pairs(B)

@@ -9,6 +9,9 @@
     may use.  It replaces the TPU's VMEM estimate and 12 MiB guard.
   * :func:`static_lane_width` -- the ``V="auto"`` rule: the widest of
     1/2/4/8 lanes whose batch buffers fit half the device memory.
+  * :func:`static_precision` / :func:`static_lchunk` -- the precision and
+    l-chunk rules of the streaming kernels: ``precision=None`` is always
+    fp32, and a schedule streams only when asked to (``lchunk``, bf16).
 """
 from __future__ import annotations
 
@@ -16,11 +19,16 @@ import os
 
 import torch
 
-__all__ = ["PRECISION_ERROR_BOUNDS", "FP32_ROUNDTRIP_BOUNDS",
+__all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
+           "PRECISION_BOUND_EXTRAPOLATED", "FP32_ROUNDTRIP_BOUNDS",
            "SMEM_LIMIT_BYTES", "V_CANDIDATES", "V_RULE",
-           "estimate_smem_bytes", "estimate_batch_bytes",
+           "estimate_smem_bytes", "window_bytes", "estimate_batch_bytes",
            "dense_table_host_bytes", "device_memory_bytes",
-           "static_lane_width"]
+           "static_lane_width", "static_precision", "static_lchunk"]
+
+# "fp32": the plan dtype throughout (chunked == monolithic bit for bit);
+# "bf16": bf16 window storage and Wigner rows, plan-dtype state and sums.
+PRECISIONS = ("fp32", "bf16")
 
 # Measured worst-case relative error of the reference's bf16-storage
 # schedule per bandwidth, ~4x headroom (see repro/kernels/autotune.py).
@@ -33,6 +41,10 @@ PRECISION_ERROR_BOUNDS = {
     256: 5e-1,
     512: 1.3e0,
 }
+
+# Bandwidths whose PRECISION_ERROR_BOUNDS entry is the reference's
+# extrapolation, not a measurement (see repro/kernels/autotune.py).
+PRECISION_BOUND_EXTRAPOLATED = frozenset({256, 512})
 
 # Measured max relative roundtrip error of the reference's fp32 fused plan
 # per bandwidth, ~4x headroom (see repro/kernels/autotune.py).
@@ -58,21 +70,52 @@ V_RULE = ("widest V in (1, 2, 4, 8) whose batch buffers "
 def estimate_smem_bytes(J: int, itemsize: int, *, inverse: bool) -> int:
     """Dynamic shared memory of one fused-kernel block: kLT staged Wigner
     rows over the padded J, the forward's per-warp partial sums (the
-    inverse's staged lhs rows instead) and kLT (A, mu, C) triples."""
+    inverse's staged lhs rows instead) and kLT (A, mu, C) triples.  The
+    streaming kernels run the same block body (``csrc/dwt_block.cuh``):
+    the same figure, whatever lchunk and precision
+    (``streaming_smem_bytes`` in ``csrc/streaming.cu``)."""
     nw = -(-J // _WARP)
     rows = _LT * nw * _WARP
     extra = _LT * _CS if inverse else nw * _LT * _CS
     return itemsize * (rows + extra) + 3 * itemsize * _LT
 
 
-def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int) -> int:
-    """Device bytes live during one V-lane batch call: the input and
-    output grids or coefficient stacks (complex, V of each), and the
-    kernel's lane-packed operand and result (K x J and K x L rows of
-    V*16 lanes), each held twice around the cluster permutation."""
-    grids = 2 * V * (2 * B) ** 3 * 2 * itemsize
-    stacks = 2 * K * (2 * B + B) * V * 16 * itemsize
-    return grids + stacks
+def window_bytes(B: int, K: int, lchunk: int | None, precision: str,
+                 itemsize: int) -> int:
+    """Device bytes of the streaming kernels' window stack (nL, 2, K, J),
+    in the plan dtype or bf16; 0 for the monolithic kernels."""
+    if lchunk is None:
+        return 0
+    return (B // lchunk) * 2 * K * 2 * B * (2 if precision == "bf16"
+                                            else itemsize)
+
+
+def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
+                         lchunk: int | None = None,
+                         precision: str = "fp32") -> int:
+    """Device bytes live at the peak of one V-lane batch call, counted
+    from core.batched's buffers (the forward and the inverse hold the
+    same set):
+
+      * the plan's resident seed rows (K x J, and their launch-order
+        copy) and the streaming window stack (:func:`window_bytes`);
+      * per transform: the input and the output (a (2B)^3 complex grid
+        and a (B, 2B, 2B) complex coefficient block), the lane-packed
+        kernel operand and result (K x J and K x L rows of 16 lanes), and
+        for V > 1 the packed copy of the operand;
+      * five beta-slab temporaries of one grid's (2B+1)^2 x J/4 complex
+        values per transform (FFT outputs, gathered members, scatter
+        buffers)."""
+    c = 2 * itemsize                             # one complex value
+    J = 2 * B
+    grid = (2 * B) ** 3 * c
+    coeffs = B * (2 * B) ** 2 * c
+    wide = K * J * 16 * itemsize                 # rhs / g
+    narrow = K * B * 16 * itemsize               # out / lhs
+    slab = (2 * B + 1) ** 2 * -(-J // 4) * c
+    per = grid + coeffs + wide + narrow + 5 * slab + (wide if V > 1 else 0)
+    return 2 * K * J * itemsize + window_bytes(B, K, lchunk, precision,
+                                               itemsize) + V * per
 
 
 def dense_table_host_bytes(B: int, itemsize: int) -> int:
@@ -91,9 +134,49 @@ def device_memory_bytes(device: torch.device) -> int:
 
 
 def static_lane_width(B: int, K: int, itemsize: int,
-                      device: torch.device) -> int:
+                      device: torch.device, *, lchunk: int | None = None,
+                      precision: str = "fp32") -> int:
     """The V="auto" rule (:data:`V_RULE`)."""
     budget = device_memory_bytes(device) // 2
     fits = [v for v in V_CANDIDATES
-            if estimate_batch_bytes(B, K, v, itemsize) <= budget]
+            if estimate_batch_bytes(B, K, v, itemsize, lchunk=lchunk,
+                                    precision=precision) <= budget]
     return max(fits) if fits else 1
+
+
+def static_precision(B: int, precision: str | None = None,
+                     dtype: torch.dtype | None = None) -> str:
+    """Resolve a schedule precision.  An explicit "fp32" / "bf16" is
+    honoured.  None -- the planner default -- is ALWAYS "fp32": a default
+    plan never trades accuracy behind the caller's back.  Only "auto"
+    opts into bf16 storage, for float32 plans (``dtype``) at B >= 128
+    with a recorded :data:`PRECISION_ERROR_BOUNDS` entry; a float64 plan
+    is never downgraded."""
+    if precision not in (None, "auto", *PRECISIONS):
+        raise ValueError(f"precision={precision!r} not in {PRECISIONS}")
+    if precision in PRECISIONS:
+        return precision
+    if precision is None:
+        return "fp32"
+    fp32_plan = dtype is None or dtype == torch.float32
+    return "bf16" if (fp32_plan and B >= 128
+                      and B in PRECISION_ERROR_BOUNDS) else "fp32"
+
+
+def static_lchunk(*, B: int, itemsize: int, precision: str) -> int | None:
+    """The l-chunk a plan takes when none is asked for: None (the
+    monolithic fused kernels) under "fp32", B under "bf16" (which has no
+    monolithic kernel; one chunk keeps the fewest window rows and the
+    longest runs of the recurrence).  The streaming kernels run the fused
+    kernels' block body, so a block that does not fit whole does not fit
+    chunked either: past the per-block budget (J = 2B <= 1024 threads and
+    :data:`SMEM_LIMIT_BYTES`) this raises, whatever the precision."""
+    J = 2 * B
+    smem = max(estimate_smem_bytes(J, itemsize, inverse=inv)
+               for inv in (False, True))
+    if J > 1024 or smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"no kernel block fits at B={B}: it needs J={J} <= 1024 threads "
+            f"and {smem} <= {SMEM_LIMIT_BYTES} bytes of shared memory, "
+            f"whatever the l-chunk")
+    return B if precision == "bf16" else None

@@ -13,7 +13,11 @@
 //
 // Layout (row-major, contiguous): seeds (K, J), m, mp (K,) int32,
 // cos_beta (J,), rhs (K, J, C2), lhs / out (K, L, C2), g (K, J, C2),
-// l0s (K / tk,) int32, with J = 2B, L = B and C2 = V * 16 lanes.
+// l0s (K / tk,) int32, with J = 2B, L = B and C2 = V * 16 lanes.  Block k
+// (clusters in the l-start-sorted launch order of seeds, m, mp and l0s)
+// reads and writes operand row perm[k] (perm (K,) int32, or null for the
+// identity), so the caller's (K, ., C2) stacks are never copied into the
+// launch order and back.
 //
 // What bounds it.  Per visited row the contraction is 2 J C2 operations
 // against J C2 + L C2 bytes of operands over the whole l-loop, so at
@@ -22,7 +26,8 @@
 // the smaller one only at the f64 tensor-core rate, which this kernel does
 // not use: it runs on the FP64 FMA pipes.
 //
-// Design.  The TPU kernel keeps a (TK, J, C2) rhs tile and a (TK, L, C2)
+// Design (the block body is dwt_block.cuh, shared with streaming.cu).
+// The TPU kernel keeps a (TK, J, C2) rhs tile and a (TK, L, C2)
 // output tile in VMEM; at B = 128, f64, V = 8 the rhs tile alone is 2 MiB
 // and a block has 227 KB of shared memory.  Here one block owns ONE
 // cluster and a slice of CS = 32 lanes:
@@ -47,95 +52,38 @@
 
 #include <cstdint>
 
-#include "recurrence.cuh"
+#include "dwt_block.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kCS = 32;  // output lanes per block: one per thread lane
-constexpr int kLT = 8;   // degrees staged in shared memory per round
-
-__host__ __device__ inline int n_warps(int J) { return (J + kWarp - 1) / kWarp; }
-
-template <typename T>
-__host__ __device__ inline size_t fwd_smem_bytes(int J) {
-  const int nj = n_warps(J) * kWarp;
-  return sizeof(T) * (size_t(kLT) * nj + size_t(n_warps(J)) * kLT * kCS) +
-         sizeof(repro::WignerCoeffs<T>) * kLT;
-}
-
-template <typename T>
-__host__ __device__ inline size_t inv_smem_bytes(int J) {
-  const int nj = n_warps(J) * kWarp;
-  return sizeof(T) * (size_t(kLT) * nj + size_t(kLT) * kCS) +
-         sizeof(repro::WignerCoeffs<T>) * kLT;
-}
-
-// First degree this cluster contributes at: max(l0, m) when the seed row
-// activates inside the tile's range, else L (never seeded: all zero).
-__device__ inline int first_degree(int l0, int m, int L) { return m >= l0 ? m : L; }
+using namespace repro;
 
 template <typename T, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 dwt_fused_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
               const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
               const T* __restrict__ rhs, const int* __restrict__ l0s,
-              T* __restrict__ out, int J, int L, int C2, int tk) {
+              const int* __restrict__ perm, T* __restrict__ out, int J, int L,
+              int C2, int tk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nw = blockDim.x / kWarp;
-  const int nj = nw * kWarp;
-  T* rows = reinterpret_cast<T*>(smem);                      // [kLT][nj]
-  T* part = rows + kLT * nj;                                 // [nw][kLT][kCS]
-  auto* coef = reinterpret_cast<repro::WignerCoeffs<T>*>(part + nw * kLT * kCS);
-
+  const FwdSmem<T> sm(smem, blockDim.x / kWarp);
   const int k = blockIdx.x;
+  const int row = perm ? perm[k] : k;
   const int c0 = blockIdx.y * kCS;
-  const int lane = threadIdx.x % kWarp;
-  const int w = threadIdx.x / kWarp;
-  const int j = w * kWarp + lane;
-  const int c = c0 + lane;
-  const bool c_ok = c < C2;
+  const int j = threadIdx.x;
   const int m = m_arr[k], mp = mp_arr[k];
   const int lbeg = first_degree(l0s[k / tk], m, L);
 
-  T* out_k = out + size_t(k) * L * C2;
-  for (int l = w; l < lbeg; l += nw)
-    if (c_ok) out_k[size_t(l) * C2 + c] = T(0);
+  T* out_k = out + size_t(row) * L * C2;
+  zero_rows(out_k, 0, lbeg, C2, c0);
   if (lbeg >= L) return;
 
   T r[kWarp];
-  const T* rhs_k = rhs + size_t(k) * J * C2;
-#pragma unroll
-  for (int i = 0; i < kWarp; ++i) {
-    const int jj = w * kWarp + i;
-    r[i] = (jj < J && c_ok) ? rhs_k[size_t(jj) * C2 + c] : T(0);
-  }
+  load_rhs(r, rhs + size_t(row) * J * C2, J, C2, c0);
   const T seed = j < J ? seeds[size_t(k) * J + j] : T(0);
   const T cb = j < J ? cos_beta[j] : T(0);
   T d_prev = T(0), d_cur = T(0);
-
-  for (int lb = lbeg; lb < L; lb += kLT) {
-    const int nlt = min(kLT, L - lb);
-    if (threadIdx.x < nlt) coef[threadIdx.x] = repro::wigner_coeffs<T>(lb + threadIdx.x, m, mp);
-    __syncthreads();
-    for (int t = 0; t < nlt; ++t)
-      rows[t * nj + j] = repro::wigner_step<T>(coef[t], lb + t, m, cb, seed, d_prev, d_cur);
-    __syncthreads();
-    for (int t = 0; t < nlt; ++t) {
-      const T* rw = rows + t * nj + w * kWarp;
-      T acc = T(0);
-#pragma unroll
-      for (int i = 0; i < kWarp; ++i) acc = fma(rw[i], r[i], acc);
-      part[(w * kLT + t) * kCS + lane] = acc;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < nlt * kCS; idx += blockDim.x) {
-      const int t = idx / kCS, cc = idx % kCS;
-      T s = T(0);
-      for (int ww = 0; ww < nw; ++ww) s += part[(ww * kLT + t) * kCS + cc];
-      if (c0 + cc < C2) out_k[size_t(lb + t) * C2 + c0 + cc] = s;
-    }
-  }
+  fwd_rows<T, false>(lbeg, L, m, mp, cb, seed, d_prev, d_cur, r, sm, out_k, C2, c0);
 }
 
 template <typename T, int kMaxThreads>
@@ -143,20 +91,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 dwt_fused_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
               const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
               const T* __restrict__ lhs, const int* __restrict__ l0s,
-              T* __restrict__ g, int J, int L, int C2, int tk) {
+              const int* __restrict__ perm, T* __restrict__ g, int J, int L,
+              int C2, int tk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nw = blockDim.x / kWarp;
-  const int nj = nw * kWarp;
-  T* rows = reinterpret_cast<T*>(smem);                      // [kLT][nj]
-  T* lhs_s = rows + kLT * nj;                                // [kLT][kCS]
-  auto* coef = reinterpret_cast<repro::WignerCoeffs<T>*>(lhs_s + kLT * kCS);
-
+  const InvSmem<T> sm(smem, blockDim.x / kWarp);
   const int k = blockIdx.x;
+  const int row = perm ? perm[k] : k;
   const int c0 = blockIdx.y * kCS;
-  const int lane = threadIdx.x % kWarp;
-  const int w = threadIdx.x / kWarp;
-  const int j = w * kWarp + lane;
-  const int c = c0 + lane;
+  const int j = threadIdx.x;
   const int m = m_arr[k], mp = mp_arr[k];
   const int lbeg = first_degree(l0s[k / tk], m, L);
 
@@ -166,42 +108,15 @@ dwt_fused_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   const T seed = j < J ? seeds[size_t(k) * J + j] : T(0);
   const T cb = j < J ? cos_beta[j] : T(0);
   T d_prev = T(0), d_cur = T(0);
-  const T* lhs_k = lhs + size_t(k) * L * C2;
-
-  for (int lb = lbeg; lb < L; lb += kLT) {
-    const int nlt = min(kLT, L - lb);
-    if (threadIdx.x < nlt) coef[threadIdx.x] = repro::wigner_coeffs<T>(lb + threadIdx.x, m, mp);
-    for (int idx = threadIdx.x; idx < nlt * kCS; idx += blockDim.x) {
-      const int t = idx / kCS, cc = idx % kCS;
-      lhs_s[idx] = c0 + cc < C2 ? lhs_k[size_t(lb + t) * C2 + c0 + cc] : T(0);
-    }
-    __syncthreads();
-    for (int t = 0; t < nlt; ++t)
-      rows[t * nj + j] = repro::wigner_step<T>(coef[t], lb + t, m, cb, seed, d_prev, d_cur);
-    __syncthreads();
-    for (int t = 0; t < nlt; ++t) {
-      const T* rw = rows + t * nj + w * kWarp;
-      const T x = lhs_s[t * kCS + lane];
-#pragma unroll
-      for (int i = 0; i < kWarp; ++i) acc[i] = fma(rw[i], x, acc[i]);
-    }
-    __syncthreads();
-  }
-
-  if (c < C2) {
-    T* g_k = g + size_t(k) * J * C2;
-#pragma unroll
-    for (int i = 0; i < kWarp; ++i) {
-      const int jj = w * kWarp + i;
-      if (jj < J) g_k[size_t(jj) * C2 + c] = acc[i];
-    }
-  }
+  inv_rows<T, false>(lbeg, L, m, mp, cb, seed, d_prev, d_cur, acc, sm,
+                     lhs + size_t(row) * L * C2, C2, c0);
+  store_acc(acc, g + size_t(row) * J * C2, J, C2, c0);
 }
 
 template <typename T, int kMaxThreads>
 cudaError_t launch(bool inverse, const T* seeds, const int* m, const int* mp,
-                   const T* cb, const T* x, const int* l0s, T* y, int K,
-                   int J, int L, int C2, int tk, cudaStream_t stream) {
+                   const T* cb, const T* x, const int* l0s, const int* perm, T* y,
+                   int K, int J, int L, int C2, int tk, cudaStream_t stream) {
   const dim3 grid(K, (C2 + kCS - 1) / kCS);
   const dim3 block(n_warps(J) * kWarp);
   const size_t smem = inverse ? inv_smem_bytes<T>(J) : fwd_smem_bytes<T>(J);
@@ -209,14 +124,14 @@ cudaError_t launch(bool inverse, const T* seeds, const int* m, const int* mp,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, block, smem, stream>>>(seeds, m, mp, cb, x, l0s, y, J, L, C2, tk);
+  kernel<<<grid, block, smem, stream>>>(seeds, m, mp, cb, x, l0s, perm, y, J, L, C2, tk);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(bool inverse, const void* seeds, const void* m, const void* mp,
-             const void* cb, const void* x, const void* l0s, void* y, int K,
-             int J, int L, int C2, int tk, void* stream) {
+             const void* cb, const void* x, const void* l0s, const void* perm,
+             void* y, int K, int J, int L, int C2, int tk, void* stream) {
   if (K <= 0 || J <= 0 || L <= 0 || C2 <= 0 || tk <= 0 || J > 1024)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -224,7 +139,7 @@ int dispatch(bool inverse, const void* seeds, const void* m, const void* mp,
     return launcher(inverse, static_cast<const T*>(seeds), static_cast<const int*>(m),
                     static_cast<const int*>(mp), static_cast<const T*>(cb),
                     static_cast<const T*>(x), static_cast<const int*>(l0s),
-                    static_cast<T*>(y), K, J, L, C2, tk, s);
+                    static_cast<const int*>(perm), static_cast<T*>(y), K, J, L, C2, tk, s);
   };
   // Up to 512 threads a block may keep 128 registers a thread: the 32
   // register-resident rhs / accumulator values do not spill.
@@ -237,28 +152,29 @@ int dispatch(bool inverse, const void* seeds, const void* m, const void* mp,
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = queued on `stream`).
+// perm may be null (identity).
 int dwt_fused_f32(const void* seeds, const void* m, const void* mp, const void* cb,
-                  const void* rhs, const void* l0s, void* out, int K, int J, int L,
-                  int C2, int tk, void* stream) {
-  return dispatch<float>(false, seeds, m, mp, cb, rhs, l0s, out, K, J, L, C2, tk, stream);
+                  const void* rhs, const void* l0s, const void* perm, void* out, int K,
+                  int J, int L, int C2, int tk, void* stream) {
+  return dispatch<float>(false, seeds, m, mp, cb, rhs, l0s, perm, out, K, J, L, C2, tk, stream);
 }
 
 int dwt_fused_f64(const void* seeds, const void* m, const void* mp, const void* cb,
-                  const void* rhs, const void* l0s, void* out, int K, int J, int L,
-                  int C2, int tk, void* stream) {
-  return dispatch<double>(false, seeds, m, mp, cb, rhs, l0s, out, K, J, L, C2, tk, stream);
+                  const void* rhs, const void* l0s, const void* perm, void* out, int K,
+                  int J, int L, int C2, int tk, void* stream) {
+  return dispatch<double>(false, seeds, m, mp, cb, rhs, l0s, perm, out, K, J, L, C2, tk, stream);
 }
 
 int idwt_fused_f32(const void* seeds, const void* m, const void* mp, const void* cb,
-                   const void* lhs, const void* l0s, void* g, int K, int J, int L,
-                   int C2, int tk, void* stream) {
-  return dispatch<float>(true, seeds, m, mp, cb, lhs, l0s, g, K, J, L, C2, tk, stream);
+                   const void* lhs, const void* l0s, const void* perm, void* g, int K,
+                   int J, int L, int C2, int tk, void* stream) {
+  return dispatch<float>(true, seeds, m, mp, cb, lhs, l0s, perm, g, K, J, L, C2, tk, stream);
 }
 
 int idwt_fused_f64(const void* seeds, const void* m, const void* mp, const void* cb,
-                   const void* lhs, const void* l0s, void* g, int K, int J, int L,
-                   int C2, int tk, void* stream) {
-  return dispatch<double>(true, seeds, m, mp, cb, lhs, l0s, g, K, J, L, C2, tk, stream);
+                   const void* lhs, const void* l0s, const void* perm, void* g, int K,
+                   int J, int L, int C2, int tk, void* stream) {
+  return dispatch<double>(true, seeds, m, mp, cb, lhs, l0s, perm, g, K, J, L, C2, tk, stream);
 }
 
 // Dynamic shared memory a launch asks for, in bytes (the host-side

@@ -13,7 +13,9 @@ and march the Wigner recurrence of ``csrc/recurrence.cuh`` in place: the
 The wrappers take the kernels' plain versions (:func:`dwt_fused_plain`,
 :func:`idwt_fused_plain`) only for tensors on the CPU; for CUDA tensors
 they launch the kernel or raise.  :data:`LAUNCHES` counts kernel
-launches per wrapper.
+launches per wrapper.  ``perm`` lets the kernels run in the l-start-sorted
+cluster order while reading and writing the caller's (K, ., C2) stacks in
+place: launch block k uses operand row perm[k].
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ from . import runtime
 from .wigner_rec import recurrence_step
 
 __all__ = ["build_tile_lstarts", "dwt_fused", "idwt_fused",
-           "dwt_fused_plain", "idwt_fused_plain", "LAUNCHES",
-           "reset_launches"]
+           "dwt_fused_plain", "idwt_fused_plain", "live_clusters",
+           "check_march_inputs", "check_operands", "route", "ptr",
+           "permute_rows", "unpermute_rows", "LAUNCHES", "reset_launches"]
 
 # kernel launches per wrapper; only the CUDA branch of a wrapper adds to it
 LAUNCHES = {"dwt_fused": 0, "idwt_fused": 0}
@@ -55,18 +58,36 @@ def build_tile_lstarts(l_start: np.ndarray, tk: int) -> np.ndarray:
 # plain versions: the same recurrence over all K at once, einsum contraction
 # ---------------------------------------------------------------------------
 
-def _march_inputs(seeds, m, mp, cos_beta, l0s, tk):
-    """Per-cluster state inputs of the plain march.  A cluster whose seed
+def live_clusters(m, l0s, tk: int):
+    """(K, 1) bool: clusters the kernels seed.  A cluster whose seed
     degree m lies below its tile's l0 is never seeded (the TPU kernel
-    starts its march at l0 with zero state), so its seed row is zeroed."""
-    K = seeds.shape[0]
+    starts its march at l0 with zero state)."""
+    l0_k = l0s.to(torch.int64).repeat_interleave(tk)[:m.shape[0]]
+    return (m.to(torch.int64) >= l0_k)[:, None]
+
+
+def _march_inputs(seeds, m, mp, cos_beta, l0s, tk):
+    """Per-cluster state inputs of the plain march; the seed rows of
+    clusters that are not live (:func:`live_clusters`) are zeroed."""
     dt = seeds.dtype
-    l0_k = l0s.to(torch.int64).repeat_interleave(tk)[:K]
-    live = (m.to(torch.int64) >= l0_k)[:, None]
-    seeds = torch.where(live, seeds, torch.zeros((), dtype=dt,
-                                                 device=seeds.device))
+    seeds = torch.where(live_clusters(m, l0s, tk), seeds,
+                        torch.zeros((), dtype=dt, device=seeds.device))
     return (seeds, m.to(dt)[:, None], mp.to(dt)[:, None],
             cos_beta.to(dt)[None, :])
+
+
+def permute_rows(x, perm):
+    """x[perm]: the caller's rows in launch order (identity for None)."""
+    return x if perm is None else x[perm.to(torch.int64)]
+
+
+def unpermute_rows(y, perm):
+    """Inverse of :func:`permute_rows`: row k of y goes to row perm[k]."""
+    if perm is None:
+        return y
+    out = torch.empty_like(y)
+    out[perm.to(torch.int64)] = y
+    return out
 
 
 # Lanes of one transform (C = 8 member slots x real/imag).  The plain
@@ -120,7 +141,7 @@ def idwt_fused_plain(seeds, m, mp, cos_beta, lhs, l0s, *, B: int,
 # wrappers
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _kernel(name: str, dtype: torch.dtype):
@@ -131,8 +152,10 @@ def _kernel(name: str, dtype: torch.dtype):
     return fn
 
 
-def _check(name, seeds, m, mp, cos_beta, x, l0s, *, rows: int, tk: int):
-    """Validate the operands of one launch; returns (K, J, C2)."""
+def check_march_inputs(name, seeds, m, mp, cos_beta):
+    """Validate the recurrence inputs of a launch: seeds (K, J) float32
+    or float64, m, mp (K,) int32, cos_beta (J,), all contiguous on one
+    device, J <= 1024."""
     K, J = seeds.shape
     dev = seeds.device
     if seeds.dtype not in (torch.float32, torch.float64):
@@ -140,41 +163,65 @@ def _check(name, seeds, m, mp, cos_beta, x, l0s, *, rows: int, tk: int):
                         f"{seeds.dtype}")
     for what, t, dt, shape in (("m", m, torch.int32, (K,)),
                                ("mp", mp, torch.int32, (K,)),
-                               ("cos_beta", cos_beta, seeds.dtype, (J,)),
-                               ("l0s", l0s, torch.int32, (K // tk,))):
+                               ("cos_beta", cos_beta, seeds.dtype, (J,))):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {what} must be {dt} {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if x.device != dev or x.dtype != seeds.dtype or x.ndim != 3 \
-            or x.shape[:2] != (K, rows):
-        raise ValueError(f"{name}: operand must be {seeds.dtype} (K={K}, "
-                         f"{rows}, C2) on {dev}, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-    if K % tk:
-        raise ValueError(f"{name}: K={K} % tk={tk}")
     if J > 1024:
         raise ValueError(f"{name}: J={J} > 1024 (B > 512) is not supported")
     for what, t in (("seeds", seeds), ("m", m), ("mp", mp),
-                    ("cos_beta", cos_beta), ("operand", x), ("l0s", l0s)):
+                    ("cos_beta", cos_beta)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def check_operands(name, seeds, m, mp, cos_beta, x, l0s, perm, *, rows: int,
+                   tk: int):
+    """Validate the operands of one launch of a fused-family kernel;
+    returns (K, J, C2)."""
+    check_march_inputs(name, seeds, m, mp, cos_beta)
+    K, J = seeds.shape
+    dev = seeds.device
+    checks = [("l0s", l0s, torch.int32, (K // tk,))]
+    if perm is not None:
+        checks.append(("perm", perm, torch.int32, (K,)))
+    for what, t, dt, shape in checks:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous {dt} "
+                             f"{shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if x.device != dev or x.dtype != seeds.dtype or x.ndim != 3 \
+            or x.shape[:2] != (K, rows) or not x.is_contiguous():
+        raise ValueError(f"{name}: operand must be contiguous {seeds.dtype} "
+                         f"(K={K}, {rows}, C2) on {dev}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    if K % tk:
+        raise ValueError(f"{name}: K={K} % tk={tk}")
     return K, J, x.shape[-1]
 
 
-def _launch(name, seeds, m, mp, cos_beta, x, l0s, y, *, L, tk):
+def ptr(t) -> int | None:
+    """Device pointer of a tensor, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name, seeds, m, mp, cos_beta, x, l0s, perm, y, *, L, tk):
     K, J = seeds.shape
     fn = _kernel(name, seeds.dtype)
     with torch.cuda.device(seeds.device):
         stream = torch.cuda.current_stream(seeds.device).cuda_stream
         err = fn(seeds.data_ptr(), m.data_ptr(), mp.data_ptr(),
                  cos_beta.data_ptr(), x.data_ptr(), l0s.data_ptr(),
-                 y.data_ptr(), K, J, L, x.shape[-1], tk, stream)
+                 ptr(perm), y.data_ptr(), K, J, L, x.shape[-1], tk, stream)
     runtime.check_launch(err, name)
     LAUNCHES[name] += 1
     return y
 
 
-def _route(name, x):
+def route(name, x):
+    """"plain" for a CPU tensor, "kernel" for a CUDA one; raise for any
+    other device."""
     if x.device.type == "cpu":
         return "plain"
     if x.device.type == "cuda":
@@ -182,30 +229,39 @@ def _route(name, x):
     raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def dwt_fused(seeds, m, mp, cos_beta, rhs, l0s, *, B: int, tk: int = 8):
+def dwt_fused(seeds, m, mp, cos_beta, rhs, l0s, *, B: int, tk: int = 8,
+              perm=None):
     """Forward fused DWT: ragged l-range + on-the-fly Wigner rows.
 
     seeds: (K, J); m, mp: (K,) int32; cos_beta: (J,); rhs: (K, J, C2)
     with C2 = V*C*2 lanes for V batched transforms; l0s: (K // tk,) int32
-    tile l-starts (build_tile_lstarts).  Returns out (K, B, C2).
+    tile l-starts (build_tile_lstarts); perm: None, or (K,) int32 operand
+    rows of the launch order (seeds, m, mp and l0s are in launch order).
+    Returns out (K, B, C2), rows in rhs's order.
     """
     tk = min(tk, seeds.shape[0])
-    if _route("dwt_fused", rhs) == "plain":
-        return dwt_fused_plain(seeds, m, mp, cos_beta, rhs, l0s, B=B, tk=tk)
-    K, J, C2 = _check("dwt_fused", seeds, m, mp, cos_beta, rhs, l0s,
-                      rows=seeds.shape[1], tk=tk)
+    if route("dwt_fused", rhs) == "plain":
+        return unpermute_rows(dwt_fused_plain(
+            seeds, m, mp, cos_beta, permute_rows(rhs, perm), l0s, B=B,
+            tk=tk), perm)
+    K, J, C2 = check_operands("dwt_fused", seeds, m, mp, cos_beta, rhs, l0s,
+                              perm, rows=seeds.shape[1], tk=tk)
     out = torch.empty((K, B, C2), dtype=seeds.dtype, device=seeds.device)
-    return _launch("dwt_fused", seeds, m, mp, cos_beta, rhs, l0s, out,
+    return _launch("dwt_fused", seeds, m, mp, cos_beta, rhs, l0s, perm, out,
                    L=B, tk=tk)
 
 
-def idwt_fused(seeds, m, mp, cos_beta, lhs, l0s, *, B: int, tk: int = 8):
-    """Inverse fused iDWT.  lhs: (K, B, C2); returns g (K, J, C2)."""
+def idwt_fused(seeds, m, mp, cos_beta, lhs, l0s, *, B: int, tk: int = 8,
+               perm=None):
+    """Inverse fused iDWT.  lhs: (K, B, C2); returns g (K, J, C2); perm
+    as in :func:`dwt_fused`."""
     tk = min(tk, seeds.shape[0])
-    if _route("idwt_fused", lhs) == "plain":
-        return idwt_fused_plain(seeds, m, mp, cos_beta, lhs, l0s, B=B, tk=tk)
-    K, J, C2 = _check("idwt_fused", seeds, m, mp, cos_beta, lhs, l0s,
-                      rows=B, tk=tk)
+    if route("idwt_fused", lhs) == "plain":
+        return unpermute_rows(idwt_fused_plain(
+            seeds, m, mp, cos_beta, permute_rows(lhs, perm), l0s, B=B,
+            tk=tk), perm)
+    K, J, C2 = check_operands("idwt_fused", seeds, m, mp, cos_beta, lhs, l0s,
+                              perm, rows=B, tk=tk)
     g = torch.empty((K, J, C2), dtype=seeds.dtype, device=seeds.device)
-    return _launch("idwt_fused", seeds, m, mp, cos_beta, lhs, l0s, g,
+    return _launch("idwt_fused", seeds, m, mp, cos_beta, lhs, l0s, perm, g,
                    L=B, tk=tk)

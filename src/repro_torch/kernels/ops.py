@@ -1,17 +1,26 @@
-"""Binds the fused DWT kernels to the clustered transforms -- the port of
-the fused branch of ``repro/kernels/ops.py``.
+"""Binds the fused-family DWT kernels to the clustered transforms -- the
+port of the fused and streaming branches of ``repro/kernels/ops.py``.
 
   * :func:`make_dwt_fn` / :func:`make_idwt_fn` -- drop-in replacements for
     core.batched.dwt_apply / idwt_apply (plug into forward_clustered /
     inverse_clustered through their dwt_fn / idwt_fn argument), with
     ``batch=V`` packing V transforms onto the kernel's lane axis so one
-    launch serves the whole stack.
+    launch serves the whole stack.  ``lchunk`` / ``precision="bf16"``
+    select the l-chunked streaming kernels (:mod:`.streaming`).
   * :func:`onthefly_inputs` / :func:`fused_metadata` -- the per-plan seed
     rows and the l-start-sorted tile schedule, memoized by plan identity.
+  * :func:`streaming_inputs` -- the launch-order operands and the window
+    stack of the streaming kernels, built once per (plan, tk, lchunk,
+    precision, :func:`window_source`).
+
+The kernels run in the l-start-sorted cluster order and read and write
+the caller's (K, ., C2) stacks through ``perm`` in place: no permuted
+copy of a stack is ever made.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -19,12 +28,13 @@ import torch
 from repro_torch.core import quadrature, wigner
 from repro_torch.core.batched import SoftPlan, plan_lstart, resolve_device
 
-from . import dwt_fused
+from . import autotune, dwt_fused, streaming
 
 __all__ = ["make_dwt_fn", "make_idwt_fn", "onthefly_inputs",
            "onthefly_inputs_from_arrays", "fused_metadata", "check_impl",
-           "pack_lanes",
-           "unpack_lanes", "pad_lanes"]
+           "launch_inputs", "streaming_inputs", "window_source",
+           "host_window_stack",
+           "pack_lanes", "unpack_lanes", "pad_lanes"]
 
 # Schedules of the reference that this port does not run yet, and the
 # ROADMAP.md item that brings each.
@@ -32,8 +42,6 @@ NOT_PORTED = {
     "dense": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
     "ragged": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
     "onthefly": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
-    "lchunk": "ROADMAP.md queue 1 item 5 (streaming path)",
-    "bf16": "ROADMAP.md queue 1 item 5 (streaming path)",
 }
 
 
@@ -145,15 +153,10 @@ def _wrap_batch(raw, batch):
     return fn
 
 
-def check_impl(impl, lchunk, precision):
+def check_impl(impl, lchunk, precision) -> None:
     """Raise on a schedule this port does not run (NotImplementedError
     naming its ROADMAP.md item) or does not know (ValueError)."""
-    if lchunk is not None:
-        raise NotImplementedError(f"lchunk= (streaming kernels): "
-                                  f"{NOT_PORTED['lchunk']}")
-    if precision == "bf16":
-        raise NotImplementedError(f"precision='bf16': {NOT_PORTED['bf16']}")
-    if precision not in (None, "fp32"):
+    if precision not in (None, *autotune.PRECISIONS):
         raise ValueError(f"precision must be 'fp32' or 'bf16', "
                          f"got {precision!r}")
     if impl in NOT_PORTED:
@@ -163,19 +166,111 @@ def check_impl(impl, lchunk, precision):
                          f"got {impl!r}")
 
 
-def _fused_fn(plan: SoftPlan, kernel, tk: int, batch):
-    tk = min(tk, plan.n_padded)
+def window_source() -> str:
+    """Where :func:`streaming_inputs` takes its window stack from:
+    "device" (default; :func:`repro_torch.kernels.streaming.build_windows`,
+    the march the kernels themselves run, so chunked equals monolithic bit
+    for bit) or "host" ($REPRO_WINDOW_SOURCE=host; :func:`host_window_stack`,
+    staged chunk by chunk from the float64 host generator)."""
+    src = os.environ.get("REPRO_WINDOW_SOURCE", "device")
+    if src not in ("device", "host"):
+        raise ValueError(f"$REPRO_WINDOW_SOURCE must be 'device' or "
+                         f"'host', got {src!r}")
+    return src
+
+
+def host_window_stack(plan: SoftPlan, tk: int, lchunk: int,
+                      precision: str = "fp32") -> torch.Tensor:
+    """Window stack (nL, 2, K, J) on the plan's device, staged chunk by
+    chunk from the host recurrence generator
+    (:func:`repro_torch.core.wigner.wigner_window_iter`).
+
+    The host holds the generator's O(P*J) panels plus one (2, K, J)
+    staging buffer: each chunk's window is mapped from fundamental-pair
+    rows to the l-start-sorted padded cluster order (padded rows zero)
+    and copied to the device before the next chunk is marched.  Equal to
+    the device builder within float64 rounding, not bit for bit."""
+    perm, _, _ = fused_metadata(plan, min(tk, plan.n_padded))
+    rows = np.full(plan.n_padded, -1, np.int64)
+    rows[: plan.n_clusters] = plan.table.fund_row
+    rows = rows[perm]
+    valid = rows >= 0
+    sdt = streaming.storage_dtype(plan.dtype, precision)
+    out = torch.empty((plan.B // lchunk, 2, plan.n_padded, 2 * plan.B),
+                      dtype=sdt, device=plan.device)
+    stage = np.zeros((2, plan.n_padded, 2 * plan.B))
+    for c, win in enumerate(wigner.wigner_window_iter(plan.B, lchunk)):
+        stage[:] = 0.0
+        stage[:, valid, :] = win[:, rows[valid], :]
+        # torch.tensor copies: torch.from_numpy would alias `stage`, which
+        # the next chunk rewrites
+        out[c] = torch.tensor(stage, dtype=plan.dtype).to(sdt)
+    return out
+
+
+def streaming_inputs(plan: SoftPlan, tk: int, lchunk: int, precision: str):
+    """Launch-order operands and window stack of the streaming kernels:
+    (seeds, m, mp, cos_beta, l0s, perm, windows), all on the plan's
+    device.  Memoized by (plan, tk, lchunk, precision,
+    :func:`window_source`): the windows are built once per configuration,
+    on the l-start-sorted cluster order the fused family launches in."""
+    return _streaming_inputs(plan, tk, lchunk, precision, window_source())
+
+
+@functools.lru_cache(maxsize=16)
+def _streaming_inputs(plan: SoftPlan, tk: int, lchunk: int, precision: str,
+                      source: str):
+    from repro_torch import obs
+
+    seeds, m, mp, cb, l0s, perm = launch_inputs(plan, tk)
+    with obs.span("plan.build.window", B=plan.B, lchunk=lchunk,
+                  precision=precision, source=source):
+        if source == "host":
+            windows = host_window_stack(plan, tk, lchunk, precision)
+        else:
+            windows = streaming.build_windows(seeds, m, mp, cb, L=plan.B,
+                                              lchunk=lchunk,
+                                              precision=precision)
+    return seeds, m, mp, cb, l0s, perm, windows
+
+
+@functools.lru_cache(maxsize=16)
+def launch_inputs(plan: SoftPlan, tk: int):
+    """(seeds, m, mp, cos_beta, l0s, perm) in the kernels' launch order,
+    on the plan's device; perm is int32 (K,)."""
     seeds, m, mp, cb = onthefly_inputs(plan)
     perm_np, _, l0s_np = fused_metadata(plan, tk)
-    perm = torch.as_tensor(perm_np, dtype=torch.int64, device=plan.device)
-    inv_perm = torch.as_tensor(np.argsort(perm_np), dtype=torch.int64,
-                               device=plan.device)
+    perm = torch.as_tensor(perm_np, device=plan.device)
     l0s = torch.as_tensor(l0s_np, device=plan.device)
-    seeds_p, m_p, mp_p = seeds[perm], m[perm], mp[perm]
+    order = perm.to(torch.int64)
+    return (seeds[order], m[order], mp[order], cb, l0s, perm)
+
+
+def _kernel_fn(plan: SoftPlan, direction: str, tk: int, lchunk, precision,
+               batch):
+    tk = min(tk, plan.n_padded)
+    if lchunk is None and precision != "bf16":
+        seeds, m, mp, cb, l0s, perm = launch_inputs(plan, tk)
+        kernel = dwt_fused.dwt_fused if direction == "dwt" \
+            else dwt_fused.idwt_fused
+
+        def raw(p: SoftPlan, x2):
+            return kernel(seeds, m, mp, cb, x2, l0s, B=p.B,
+                          tk=tk, perm=perm)
+        return _wrap_batch(raw, batch)
+
+    precision = precision or "fp32"
+    lchunk = streaming.check_lchunk(plan.B, plan.B if lchunk is None
+                                    else lchunk)
+    seeds, m, mp, cb, l0s, perm, windows = streaming_inputs(
+        plan, tk, lchunk, precision)
+    kernel = streaming.dwt_streaming if direction == "dwt" \
+        else streaming.idwt_streaming
 
     def raw(p: SoftPlan, x2):
-        out = kernel(seeds_p, m_p, mp_p, cb, x2[perm], l0s, B=p.B, tk=tk)
-        return out[inv_perm]
+        return kernel(seeds, m, mp, cb, x2, l0s, windows,
+                      B=p.B, tk=tk, lchunk=lchunk, precision=precision,
+                      perm=perm)
     return _wrap_batch(raw, batch)
 
 
@@ -186,10 +281,14 @@ def make_dwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
     impl: "fused" (the other schedules of the reference raise
     NotImplementedError naming the ROADMAP item that brings them).
     batch=V makes the fn accept a (V, K, J, C, 2) stack contracted in ONE
-    kernel launch with V*C*2 lanes.
+    kernel launch with V*C*2 lanes.  lchunk selects the l-chunked
+    streaming kernel (chunks of lchunk degrees, each resumed from a
+    two-row recurrence window); precision: None / "fp32" (the plan
+    dtype) or "bf16" (bf16 windows and Wigner rows, plan-dtype state and
+    sums; always the streaming kernel, at lchunk=B unless given).
     """
     check_impl(impl, lchunk, precision)
-    return _fused_fn(plan, dwt_fused.dwt_fused, tk, batch)
+    return _kernel_fn(plan, "dwt", tk, lchunk, precision, batch)
 
 
 def make_idwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
@@ -197,4 +296,4 @@ def make_idwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
     """Build an idwt_fn(plan, lhs) for core.batched.inverse_clustered;
     see :func:`make_dwt_fn`."""
     check_impl(impl, lchunk, precision)
-    return _fused_fn(plan, dwt_fused.idwt_fused, tk, batch)
+    return _kernel_fn(plan, "idwt", tk, lchunk, precision, batch)

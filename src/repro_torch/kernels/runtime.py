@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "library", "nvcc_path",
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("dwt_fused",)            # one library per csrc/<name>.cu
+SOURCES = ("dwt_fused", "streaming")   # one library per csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

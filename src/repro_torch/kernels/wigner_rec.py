@@ -7,9 +7,14 @@ marches every cluster of a (K, J) tile at once; the plain versions of the
 fused kernels (:mod:`.dwt_fused`) call it once per degree l.
 
 The CUDA step rounds every operation on its own (no FMA contraction, see
-recurrence.cuh), as torch's elementwise ops do; the two still differ in
-the order of the contraction sums, so kernel and twin are compared with
-a tolerance.
+recurrence.cuh), as torch's elementwise ops do, and the twin performs
+the same operations in the same order: 1 / sqrt as a correctly rounded
+reciprocal of a square root (not rsqrt), and each division by a degree
+term as a true division by a tensor (torch on a CUDA device turns a
+division by a Python number into a multiplication by its reciprocal).
+So on the card the twin generates the kernels' Wigner rows bit for bit;
+kernel and plain version still differ in the order of the contraction
+sums, and are compared with a tolerance.
 """
 from __future__ import annotations
 
@@ -35,14 +40,16 @@ def recurrence_step(l: int, m: torch.Tensor, mp: torch.Tensor,
     row = torch.where(active, d_cur, zero)
 
     lp1 = lf + 1.0
-    den = torch.rsqrt(torch.clamp((lp1 * lp1 - m * m) * (lp1 * lp1 - mp * mp),
-                                  min=1.0))
+    den = torch.reciprocal(torch.sqrt(torch.clamp(
+        (lp1 * lp1 - m * m) * (lp1 * lp1 - mp * mp), min=1.0)))
     A = lp1 * (2.0 * lf + 1.0) * den
     if l > 0:
-        mu = m * mp / (lf * lp1)
+        def t(v):
+            return torch.tensor(v, dtype=m.dtype, device=m.device)
+        mu = m * mp / t(lf * lp1)
         C = lp1 * torch.sqrt(torch.clamp((lf * lf - m * m)
                                          * (lf * lf - mp * mp), min=0.0)) \
-            * den / lf
+            * den / t(lf)
     else:
         mu = torch.zeros_like(m)
         C = torch.zeros_like(m)

@@ -7,6 +7,8 @@ through the fused CUDA kernels.
     t = plan(B)                            # on the card
     fhat = t.forward(f)                    # single transform
     grids = t.inverse_batch(fhats)         # V-lane packed launches
+    t16 = plan(B, lchunk=16)               # l-chunked streaming kernels
+    tb = plan(B, torch.float32, precision="bf16")   # bf16 rows / windows
 
 The port of ``repro.plan.transform`` for one device.  Options of the
 reference that this port does not run yet raise NotImplementedError
@@ -24,6 +26,7 @@ from repro_torch import obs
 from repro_torch.core import batched
 from repro_torch.core.batched import SoftPlan, resolve_device
 from repro_torch.kernels import autotune, dwt_fused, ops
+from repro_torch.kernels import streaming as streaming_kernels
 
 __all__ = ["Transform", "Schedule", "plan", "clear_cache", "cache_stats",
            "dense_table_bytes_limit", "IMPLS"]
@@ -52,8 +55,10 @@ class Schedule:
 
     ``source``: "explicit" (the caller fixed V) or "static" (the
     :data:`repro_torch.kernels.autotune.V_RULE` lane-width rule).
-    ``smem_bytes``: dynamic shared memory of the larger of the two fused
-    kernels' blocks (0 for the reference einsum).
+    ``smem_bytes``: dynamic shared memory of the larger of the two
+    kernels' blocks (0 for the reference einsum).  ``lchunk``: None for
+    the monolithic fused kernels, else the l-chunk of the streaming
+    kernels; ``precision``: "fp32" (the plan dtype) or "bf16".
     """
 
     impl: str               # "fused" | "reference"
@@ -62,12 +67,18 @@ class Schedule:
     source: str
     smem_bytes: int
     batch_bytes: int        # device bytes of one V-lane batch call
+    lchunk: int | None = None
+    precision: str = "fp32"
+    window_bytes: int = 0   # the streaming kernels' window stack
 
 
-def _static_schedule(soft_plan: SoftPlan, impl: str, V) -> Schedule:
-    """Widest lane width whose batch buffers fit the device (V="auto"),
-    one V=1 transform's buffers checked against the device's memory, and
-    the fused kernels' shared memory against Hopper's 227 KB.
+def _static_schedule(soft_plan: SoftPlan, impl: str, V, lchunk,
+                     precision: str) -> Schedule:
+    """The l-chunk (:func:`repro_torch.kernels.autotune.static_lchunk`:
+    an explicit lchunk is honoured, bf16 always streams, fp32 streams
+    only when asked to), the kernels' block against Hopper's per-block
+    budget, one V=1 transform's buffers against the device's memory, and
+    the widest lane width whose batch buffers fit (V="auto").
     """
     K, B = soft_plan.n_padded, soft_plan.B
     itemsize = torch.empty((), dtype=soft_plan.dtype).element_size()
@@ -77,30 +88,31 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V) -> Schedule:
             f"impl='reference' needs the dense Wigner table, but this "
             f"B={B} plan was built streaming (d=None); use impl='fused' or "
             f"plan with streaming=False")
-    need = autotune.estimate_batch_bytes(B, K, 1, itemsize)
+    smem = 0
+    if impl == "fused":
+        auto = autotune.static_lchunk(B=B, itemsize=itemsize,
+                                      precision=precision)
+        lchunk = auto if lchunk is None else lchunk
+        smem = max(autotune.estimate_smem_bytes(2 * B, itemsize, inverse=inv)
+                   for inv in (False, True))
+    mem = dict(lchunk=lchunk, precision=precision)
+    need = autotune.estimate_batch_bytes(B, K, 1, itemsize, **mem)
     have = autotune.device_memory_bytes(soft_plan.device)
     if need > have:
         raise ValueError(
             f"one B={B} transform needs ~{need} bytes of {soft_plan.device} "
             f"memory (autotune.estimate_batch_bytes at V=1), over its "
-            f"{have}; see ROADMAP.md queue 3 (B = 512 on one card)")
+            f"{have}")
     if V == "auto":
-        V = autotune.static_lane_width(B, K, itemsize, soft_plan.device)
+        V = autotune.static_lane_width(B, K, itemsize, soft_plan.device,
+                                       **mem)
         source = "static"
     else:
         source = "explicit"
-    smem = 0
-    if impl == "fused":
-        smem = max(autotune.estimate_smem_bytes(2 * B, itemsize,
-                                                inverse=inv)
-                   for inv in (False, True))
-        if smem > autotune.SMEM_LIMIT_BYTES:
-            raise ValueError(
-                f"fused kernels need {smem} bytes of shared memory per "
-                f"block at B={B}, over the {autotune.SMEM_LIMIT_BYTES} "
-                f"a Hopper block may use")
     return Schedule(impl, V, _DEF_TK, source, smem,
-                    autotune.estimate_batch_bytes(B, K, V, itemsize))
+                    autotune.estimate_batch_bytes(B, K, V, itemsize, **mem),
+                    lchunk, precision,
+                    autotune.window_bytes(B, K, lchunk, precision, itemsize))
 
 
 class Transform:
@@ -147,11 +159,15 @@ class Transform:
     def describe(self) -> dict:
         """One flat dict for logs / benchmark rows.
 
-        ``smem_bytes`` is the fused kernels' shared memory per block,
-        ``batch_bytes`` / ``v_rule`` how V was chosen, and
-        ``kernel_launches`` the process-wide launch counts of the CUDA
-        kernels (:data:`repro_torch.kernels.dwt_fused.LAUNCHES`; zero on
-        the CPU, where the plain versions run)."""
+        ``smem_bytes`` is the kernels' shared memory per block,
+        ``batch_bytes`` / ``v_rule`` how V was chosen, ``lchunk`` /
+        ``precision`` / ``window_bytes`` the streaming schedule (lchunk
+        None: the monolithic fused kernels), and ``kernel_launches`` the
+        process-wide launch counts of the CUDA kernels
+        (:data:`repro_torch.kernels.dwt_fused.LAUNCHES` and
+        :data:`repro_torch.kernels.streaming.LAUNCHES`; zero on the CPU,
+        where the plain versions run).  ``precision_bound_extrapolated``
+        flags a bf16 schedule whose error bound is not a measurement."""
         s = self.schedule
         sp = self.soft_plan
         rec = obs.get_recorder()
@@ -161,10 +177,14 @@ class Transform:
             "impl": s.impl, "V": s.V, "tk": s.tk, "source": s.source,
             "v_rule": autotune.V_RULE, "batch_bytes": s.batch_bytes,
             "streaming": sp.streaming,
+            "lchunk": s.lchunk, "precision": s.precision,
+            "window_bytes": s.window_bytes,
+            "precision_bound_extrapolated": s.precision == "bf16" and
+            self.B in autotune.PRECISION_BOUND_EXTRAPOLATED,
             "smem_bytes": s.smem_bytes,
             "smem_limit": autotune.SMEM_LIMIT_BYTES,
             "n_clusters": sp.n_clusters, "n_padded": sp.n_padded,
-            "kernel_launches": dict(dwt_fused.LAUNCHES),
+            "kernel_launches": {**dwt_fused.LAUNCHES, **streaming_kernels.LAUNCHES},
             "obs": {
                 "counters": {k: v for k, v in rec.counters().items()
                              if k.startswith("plan.")},
@@ -182,8 +202,9 @@ class Transform:
     def _make(self, maker, batch):
         if self.schedule.impl == "reference":
             return None
-        return maker(self.soft_plan, "fused", tk=self.schedule.tk,
-                     batch=batch)
+        s = self.schedule
+        return maker(self.soft_plan, "fused", tk=s.tk, lchunk=s.lchunk,
+                     precision=s.precision, batch=batch)
 
     @property
     def dwt_fn(self):
@@ -336,6 +357,17 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
           B >= 128 streams), as the reference does.
     device: None means the card (raises if there is none); pass "cpu" to
           run the kernels' plain versions on the CPU.
+    lchunk: run the l-chunked streaming kernels with chunks of lchunk
+          degrees (must divide B).  None: the monolithic fused kernels
+          under fp32, one chunk of B under bf16
+          (:func:`repro_torch.kernels.autotune.static_lchunk`).  A block
+          fits the card's per-block budget at every B <= 512; past it the
+          plan raises ValueError, whatever the l-chunk.
+    precision: None / "fp32" (the plan dtype throughout), "bf16" (bf16
+          window storage and Wigner rows, plan-dtype recurrence and sums;
+          always streaming), or "auto" (bf16 only for float32 plans at
+          B >= 128; see :func:`repro_torch.kernels.autotune.
+          static_precision`).  None never downgrades.
 
     Identical configurations return the SAME Transform object.
     """
@@ -345,13 +377,22 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
         if tune == "measure":
             raise _not_ported("plan(tune='measure')", "measure")
         raise ValueError(f"tune must be 'static' or 'measure', got {tune!r}")
-    ops.check_impl("fused" if impl in ("auto", "reference") else impl,
-                   lchunk, precision)
-    if V != "auto" and (not isinstance(V, int) or V < 1):
-        raise ValueError(f"V must be 'auto' or a positive int, got {V!r}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be torch.float32 or torch.float64, "
                          f"got {dtype!r}")
+    precision = autotune.static_precision(B, precision, dtype=dtype)
+    if impl == "reference":
+        if lchunk is not None or precision == "bf16":
+            raise ValueError("lchunk / precision='bf16' run the streaming "
+                             "kernels, which exist only for impl='fused' "
+                             "(impl='reference' is the plain einsum)")
+    else:
+        ops.check_impl("fused" if impl == "auto" else impl, lchunk,
+                       precision)
+    if lchunk is not None:
+        lchunk = streaming_kernels.check_lchunk(B, lchunk)
+    if V != "auto" and (not isinstance(V, int) or V < 1):
+        raise ValueError(f"V must be 'auto' or a positive int, got {V!r}")
     device = resolve_device(device)
     itemsize = torch.empty((), dtype=dtype).element_size()
     if streaming is None:
@@ -360,7 +401,8 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
     elif streaming and impl == "reference":
         raise ValueError("streaming=True needs impl='fused' (the reference "
                          "einsum reads the dense Wigner table)")
-    key = (B, dtype, impl, V, bool(streaming), str(device))
+    key = (B, dtype, impl, V, bool(streaming), str(device), lchunk,
+           precision)
     hit = _CACHE.get(key)
     if hit is not None:
         _CACHE_STATS["hits"] += 1
@@ -375,7 +417,8 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
             B, dtype=dtype, pad_to=_DEF_TK, streaming=bool(streaming),
             device=device)
         with obs.span("plan.schedule", B=B, impl=impl):
-            schedule = _static_schedule(soft_plan, impl, V)
+            schedule = _static_schedule(soft_plan, impl, V, lchunk,
+                                        precision)
         t = Transform(soft_plan=soft_plan, schedule=schedule)
     _CACHE[key] = t
     while len(_CACHE) > _CACHE_MAX:

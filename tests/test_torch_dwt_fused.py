@@ -189,14 +189,47 @@ def test_lane_packing_roundtrip():
 
 
 @pytest.mark.parametrize("kwargs", [dict(impl="dense"), dict(impl="ragged"),
-                                    dict(impl="onthefly"), dict(lchunk=4),
-                                    dict(precision="bf16")])
+                                    dict(impl="onthefly")])
 def test_unported_schedules_raise(kwargs):
     tp = tb.build_plan(8, pad_to=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tops.make_dwt_fn(tp, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tops.make_idwt_fn(tp, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(lchunk=4), dict(precision="bf16")])
+def test_streaming_schedules_run(kwargs):
+    """lchunk / precision="bf16" build the streaming kernels' fns; fp32
+    chunking gives the fused fns' bits, bf16 stays near them."""
+    tp = tb.build_plan(8, pad_to=8, device="cpu")
+    rng = np.random.default_rng(4)
+    for direction, A in (("dwt", 16), ("idwt", 8)):
+        x = torch.as_tensor(rng.normal(size=(tp.n_padded, A, 8, 2)))
+        got = getattr(tops, f"make_{direction}_fn")(tp, **kwargs)(tp, x)
+        want = getattr(tops, f"make_{direction}_fn")(tp)(tp, x)
+        if "lchunk" in kwargs:
+            assert torch.equal(got, want)
+        else:
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert 0 < rel <= 1.2e-2     # PRECISION_ERROR_BOUNDS[8]
+
+
+def test_perm_reads_and_writes_caller_rows():
+    """perm= on the plain route: operands in the caller's row order give
+    the launch-order result scattered back to those rows."""
+    B = 8
+    inp = _inputs(B, torch.float64, 4)
+    perm = torch.as_tensor(inp["perm"])
+    inv = torch.as_tensor(np.argsort(inp["perm"]))
+    l0s = torch.as_tensor(inp["l0s"])
+    K, J = inp["jax"][0].shape
+    rng = np.random.default_rng(2)
+    for fn, A in ((tdf.dwt_fused, J), (tdf.idwt_fused, B)):
+        x = torch.as_tensor(rng.normal(size=(K, A, 16)))
+        sorted_out = fn(*inp["torch"], x, l0s, B=B, tk=4)
+        out = fn(*inp["torch"], x[inv], l0s, B=B, tk=4, perm=perm)
+        assert torch.equal(out[perm.long()], sorted_out)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

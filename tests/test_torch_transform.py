@@ -146,7 +146,11 @@ def test_schedule_and_describe():
     assert d["V"] == 8 and d["source"] == "static"   # tiny B: widest V fits
     assert d["streaming"] is False
     assert 0 < d["smem_bytes"] <= d["smem_limit"] == 232448
-    assert set(d["kernel_launches"]) == {"dwt_fused", "idwt_fused"}
+    assert set(d["kernel_launches"]) == {"dwt_fused", "idwt_fused",
+                                         "build_windows", "dwt_streaming",
+                                         "idwt_streaming"}
+    assert d["lchunk"] is None and d["precision"] == "fp32"
+    assert d["window_bytes"] == 0
     assert "vmem_bytes" not in d and "vmem_limit" not in d
     # paper scale streams, as in the reference (no device work needed)
     assert tplan(128, device="cpu").soft_plan.streaming
@@ -167,12 +171,26 @@ def test_executor_spans_recorded():
 
 
 @pytest.mark.parametrize("kwargs", [dict(impl="dense"), dict(impl="ragged"),
-                                    dict(impl="onthefly"), dict(lchunk=4),
-                                    dict(precision="bf16"),
+                                    dict(impl="onthefly"),
                                     dict(tune="measure"), dict(mesh=object())])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tplan(8, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(lchunk=4), dict(precision="bf16")])
+def test_streaming_options_plan(kwargs):
+    """lchunk= and precision="bf16" plan the streaming kernels."""
+    t = tplan(8, device="cpu", **kwargs)
+    assert t.schedule.lchunk == kwargs.get("lchunk", 8)
+    assert t.schedule.precision == kwargs.get("precision", "fp32")
+    fhat = tsoft.random_coeffs(8, 1)
+    back = t.forward(t.inverse(fhat)).numpy()
+    if "precision" in kwargs:      # bf16: the reference's gate, vs max|fhat|
+        rel = np.abs(back - fhat).max() / np.abs(fhat).max()
+        assert 0 < rel <= autotune.PRECISION_ERROR_BOUNDS[8]
+    else:
+        np.testing.assert_allclose(back, fhat, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("method", ["engine", "s2_forward", "correlate"])
