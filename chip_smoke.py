@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # needs one CUDA card and nvcc
-    python3 chip_smoke.py --profile   # adds a torch.profiler breakdown
+    python3 chip_smoke.py --profile   # adds torch.profiler breakdowns
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
@@ -23,12 +23,27 @@ Phases (any failure exits non-zero):
      one call per grid, bitwise, with both times;
   3c. the streaming kernels equal the fused ones bit for bit, fp32 and
      f64, lchunk 8 / 32 / 128 at B = 128 V = 8, with both kernels' times;
+  3d. (run after 4b, so that phase 4's peak memory does not hold the
+     dense table) the on-the-fly, dense and ragged kernels against their
+     plain versions: B = 128 f64 V = 8 on plan(128, impl="dense")'s own table
+     (ragged at tl = 16, its work list against the dense block count),
+     B = 64 f32 V = 8, and edge shapes B = 4..32 (J < 32, C2 = 16..48,
+     tl 2 / 4 / B); kernel, plain and torch.bmm times beside each bound,
+     and the on-the-fly kernels against the fused ones (torch.equal and
+     both times) at B = 128 f64 and B = 64 f32;
   4. the main path: repro_torch.plan(128) at its defaults,
      inverse_batch of 8 coefficient sets then forward_batch, held to the
      paper's Table-1 roundtrip metric and to the single transforms;
   4b. the streaming path: plan(128, lchunk=16), whose batch results equal
      phase 4's bit for bit, and plan(128, float32, precision="bf16")
      within PRECISION_ERROR_BOUNDS[128] of the fp32 plan;
+  4c. the other schedules, inverse_batch(8) then forward_batch(8) each:
+     plan(128, impl="onthefly") equal to phase 4 (torch.equal);
+     plan(128, impl="dense") and plan(128, impl="ragged", tl=16) within
+     the roundtrip gate and rtol 1e-10 / atol 1e-11 of phase 4, lane 0
+     bitwise equal to the single transform, peak memory under
+     estimate_batch_bytes (every other plan freed first; all are freed
+     after, so that phases 5-6 measure their own peaks);
   5. repro_torch.plan(256): one inverse -> forward roundtrip, and the bf16
      plan's error against the fp32 plan in float32;
   6. repro_torch.plan(512) f64 V = 1: one inverse -> forward roundtrip,
@@ -71,6 +86,10 @@ TOL_BF16 = {"float64": 1e-10, "float32": 1e-5}
 # first run: B = 128 batched, B = 256 single, B = 512 single.
 RT_GATES = {128: (1e-12, 1e-9), 256: (5e-12, None), 512: (1e-11, 1e-9)}
 
+# torch.allclose gate of the table schedules against phase 4's fused plan
+# (the reference's, tests/test_dwt_fused.py)
+SCHED_RTOL, SCHED_ATOL = 1e-10, 1e-11
+
 KERNELS = {
     "dwt_fused": {"replaces": "src/repro/kernels/dwt_fused.py:110",
                   "source": "src/repro_torch/kernels/csrc/dwt_fused.cu"},
@@ -82,6 +101,16 @@ KERNELS = {
                       "source": "src/repro_torch/kernels/csrc/streaming.cu"},
     "idwt_streaming": {"replaces": "src/repro/kernels/streaming.py:273",
                        "source": "src/repro_torch/kernels/csrc/streaming.cu"},
+    "dwt_onthefly": {"replaces": "src/repro/kernels/wigner_rec.py:105",
+                     "source": "src/repro_torch/kernels/csrc/dwt_fused.cu"},
+    "idwt_onthefly": {"replaces": "src/repro/kernels/wigner_rec.py:162",
+                      "source": "src/repro_torch/kernels/csrc/dwt_fused.cu"},
+    "dwt_dense": {"replaces": "src/repro/kernels/dwt.py:76",
+                  "source": "src/repro_torch/kernels/csrc/dwt_dense.cu"},
+    "idwt_dense": {"replaces": "src/repro/kernels/dwt.py:111",
+                   "source": "src/repro_torch/kernels/csrc/dwt_dense.cu"},
+    "dwt_ragged": {"replaces": "src/repro/kernels/dwt.py:175",
+                   "source": "src/repro_torch/kernels/csrc/dwt_dense.cu"},
 }
 
 
@@ -145,8 +174,9 @@ def ptxas_summary(name: str, text: str) -> list[str]:
         hit = re.search(r"Used (\d+) registers", line)
         if hit and cur:
             short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
-                              r"dwt_stream_inv|build_windows_kernel)I(.*?)EEv",
-                              cur)
+                              r"dwt_stream_inv|build_windows_kernel|"
+                              r"onthefly_fwd|onthefly_inv|dense_kernel)"
+                              r"I(.*?)EEv", cur)
             label = f"{short.group(1)}<{short.group(2)[:40]}>" if short \
                 else cur[:60]
             rows.append(f"  [{name}] {label}: {hit.group(1)} registers, "
@@ -534,18 +564,177 @@ def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the on-the-fly, dense and ragged kernels
+# ---------------------------------------------------------------------------
+
+def table_bound(d, x, out, dtype_name, *, blocks=None):
+    """(bound_ms, bound_by) of a table kernel: the table, the operand and
+    the output once each, 2 J C2 operations per contracted (cluster, l)
+    row; the ragged forward (blocks = (G, tk, tl)) only the table and
+    output rows of its work list's blocks, plus its index vectors."""
+    K, L, J = d.shape
+    C2 = x.shape[-1]
+    itemsize = d.element_size()
+    rows = K * L if blocks is None else blocks[0] * blocks[1] * blocks[2]
+    out_elems = out.numel() if blocks is None else rows * C2
+    nbytes = (rows * J + x.numel() + out_elems) * itemsize
+    if blocks is not None:
+        nbytes += 4 * (2 * blocks[0] + K)
+    return _bound(nbytes, rows * 2 * J * C2, dtype_name)
+
+
+class TableCase:
+    """Operands of the table and on-the-fly kernels for a dense plan t
+    (plan(B, dtype, impl="dense")): its own (K, L, J) table, rhs
+    (K, J, V*16) and lhs (K, L, V*16) from a seed, lhs zero below each
+    cluster's m as _gather_coeffs makes it, all in the plan's order."""
+
+    def __init__(self, t, V, *, seed):
+        import torch
+        from repro_torch.kernels import ops
+
+        sp = self.plan = t.soft_plan
+        self.d = sp.d
+        self.B, self.V, self.dtype = sp.B, V, sp.dtype
+        self.dname = str(sp.dtype).replace("torch.", "")
+        K, L, J = self.d.shape
+        C2 = V * 16
+        gen = torch.Generator(device=self.d.device).manual_seed(seed)
+        self.rhs = torch.randn((K, J, C2), generator=gen,
+                               device=self.d.device, dtype=sp.dtype)
+        self.onthefly = ops.onthefly_inputs(sp)
+        m = self.onthefly[1].long()
+        lhs = torch.randn((K, L, C2), generator=gen, device=self.d.device,
+                          dtype=sp.dtype)
+        lhs *= (torch.arange(L, device=lhs.device)[None, :]
+                >= m[:, None])[..., None]
+        self.lhs = lhs
+        self.shape = [K, L, J, C2]
+        self.tag = (f"B={self.B:3d} {self.dname} V={V} K={K} J={J} "
+                    f"C2={C2}")
+
+
+def _timed(rec, run, plain, lib, bound_):
+    rec["ms"] = cuda_ms(run, 5)
+    rec["plain_ms"] = cuda_ms(plain, 1)
+    rec["library_ms"] = cuda_ms(lib, 3)
+    rec["bound_ms"], rec["bound_by"] = bound_
+    log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+        f"  library(bmm) {rec['library_ms']:.4f} ms  bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def table_case(c: TableCase, tl: int, *, time_it: bool):
+    """dwt_dense / idwt_dense / dwt_ragged (tl) against their plain
+    versions on c's table; the ragged output is compared on the blocks
+    its work list visits (the rest is undefined)."""
+    import torch
+    from repro_torch.kernels import dwt as dk, dwt_fused as dfk, ops
+
+    K, L, J, C2 = c.shape
+    meta = ops._ragged_metadata(c.plan, 8, tl)
+    seen = dfk.unpermute_rows(dk.visited_mask(
+        meta.kk_t, meta.ll_t, K=K, L=L, tk=8, tl=tl), meta.perm_t)
+    G = len(meta.kk)
+    log(f"  dwt_ragged {c.tag} tl={tl}: work list G={G} blocks of the "
+        f"dense grid's {meta.n_dense} ({G / meta.n_dense:.3f})")
+    zero = torch.zeros((), dtype=c.dtype, device=c.d.device)
+    recs = {}
+    kw = dict(tk=8, tl=tl, tj=J)
+    for name, x, run, plain, lib in (
+            ("dwt_dense", c.rhs, lambda: dk.dwt_dense(c.d, c.rhs, **kw),
+             lambda: dk.dwt_dense_plain(c.d, c.rhs),
+             lambda: torch.bmm(c.d, c.rhs)),
+            ("idwt_dense", c.lhs, lambda: dk.idwt_dense(c.d, c.lhs, **kw),
+             lambda: dk.idwt_dense_plain(c.d, c.lhs),
+             lambda: torch.bmm(c.d.transpose(1, 2), c.lhs)),
+            ("dwt_ragged", c.rhs,
+             lambda: dk.dwt_ragged(c.d, c.rhs, meta.kk_t, meta.ll_t,
+                                   perm=meta.perm_t, **kw),
+             lambda: dk.dwt_ragged_plain(c.d, c.rhs, meta.kk_t, meta.ll_t,
+                                         tk=8, tl=tl, perm=meta.perm_t),
+             lambda: torch.bmm(c.d, c.rhs))):
+        got, want = run(), plain()
+        if name == "dwt_ragged":
+            got = torch.where(seen[:, :, None], got, zero)
+        rec = compare(name, f"{c.tag} tl={tl}", got, want, c.dname)
+        rec.update(B=c.B, dtype=c.dname, V=c.V, shape=c.shape, tl=tl)
+        if name == "dwt_ragged":
+            rec.update(work_blocks=G, dense_blocks=meta.n_dense)
+        if time_it:
+            _timed(rec, run, plain, lib, table_bound(
+                c.d, x, got, c.dname,
+                blocks=(G, 8, tl) if name == "dwt_ragged" else None))
+        recs[name] = rec
+        del got, want
+    torch.cuda.empty_cache()
+    return recs
+
+
+def onthefly_case(c: TableCase, *, time_it: bool, equal_fused: bool):
+    """dwt_onthefly / idwt_onthefly against their plain versions (plan
+    order, every degree) and, with ``equal_fused``, against the fused
+    kernels (l-start-sorted through perm) with torch.equal; timed
+    beside the fused kernel and torch.bmm on c's table."""
+    import torch
+    from repro_torch.kernels import dwt_fused as dfk, ops, wigner_rec as wr
+
+    K, L, J, C2 = c.shape
+    seeds, m, mp, cb = c.onthefly
+    fseeds, fm, fmp, fcb, l0s, perm = ops.launch_inputs(c.plan, 8)
+    recs = {}
+    for name, x, kern, plain, fused, lib in (
+            ("dwt_onthefly", c.rhs, wr.dwt_onthefly, wr.dwt_onthefly_plain,
+             dfk.dwt_fused, lambda: torch.bmm(c.d, c.rhs)),
+            ("idwt_onthefly", c.lhs, wr.idwt_onthefly,
+             wr.idwt_onthefly_plain, dfk.idwt_fused,
+             lambda: torch.bmm(c.d.transpose(1, 2), c.lhs))):
+        run = lambda: kern(seeds, m, mp, cb, x, B=c.B, tk=8)  # noqa: E731
+        run_plain = lambda: plain(seeds, m, mp, cb, x, B=c.B)  # noqa: E731
+        run_fused = lambda: fused(fseeds, fm, fmp, fcb, x, l0s,  # noqa: E731
+                                  B=c.B, tk=8, perm=perm)
+        got = run()
+        rec = compare(name, c.tag, got, run_plain(), c.dname)
+        rec.update(B=c.B, dtype=c.dname, V=c.V, shape=c.shape)
+        if equal_fused:
+            same = bool(torch.equal(got, run_fused()))
+            rec["equals_fused"] = same
+            log(f"  {name} == {name.replace('onthefly', 'fused')} "
+                f"{c.tag}: {same}")
+            if not same:
+                fail(f"{name} differs from the fused kernel at {c.tag}")
+        if time_it:
+            _timed(rec, run, run_plain, lib,
+                   bound(name, seeds, x, got, K * L, c.dname))
+            rec["fused_ms"] = cuda_ms(run_fused, 5)
+            log(f"    fused {rec['fused_ms']:.4f} ms: onthefly / fused = "
+                f"{rec['ms'] / rec['fused_ms']:.3f}")
+        recs[name] = rec
+        del got
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the paths through repro_torch.plan
 # ---------------------------------------------------------------------------
 
+def _launch_modules():
+    from repro_torch.kernels import dwt as dk, dwt_fused as dfk
+    from repro_torch.kernels import streaming as stk, wigner_rec as wr
+    return dfk, stk, wr, dk
+
+
 def reset_all_launches():
-    from repro_torch.kernels import dwt_fused as dfk, streaming as stk
-    dfk.reset_launches()
-    stk.reset_launches()
+    for mod in _launch_modules():
+        mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from repro_torch.kernels import dwt_fused as dfk, streaming as stk
-    return {**dfk.LAUNCHES, **stk.LAUNCHES}
+    out = {}
+    for mod in _launch_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def roundtrip_metric(fhat, back):
@@ -715,6 +904,97 @@ def streaming_path(B, fhats, fs_ref, backs_ref, counts: dict) -> dict:
     return res
 
 
+def schedule_pair(B, label, t, fhats, refs, *, check_memory: bool) -> dict:
+    """One plan(B, impl=...) of phase 4c: inverse_batch then forward_batch
+    of phase 4's coefficients, launch counts zeroed just before the pair
+    and read just after.  onthefly must equal phase 4 (``refs``, on the
+    host; torch.equal); dense and ragged must pass the roundtrip gate, lie
+    within SCHED_RTOL / SCHED_ATOL of phase 4, give lane 0 the single
+    transform's bits and, with ``check_memory``, peak under
+    estimate_batch_bytes -- the plain peak of the pair, so the caller
+    frees everything but the plan and the input before."""
+    import torch
+
+    d = t.describe()
+    reset_all_launches()
+
+    def pair():
+        fs = t.inverse_batch(fhats)
+        return fs, t.forward_batch(fs)
+
+    (fs, backs), peak, before = peak_of(pair)
+    counts = all_launches()
+    r = {"launches": counts, "V": d["V"], "tl": d["tl"],
+         "streaming": d["streaming"], "smem_bytes": d["smem_bytes"]}
+    log(f"  plan({B}, impl={label!r}): V={d['V']} tl={d['tl']} "
+        f"streaming={d['streaming']} inverse_impl={d['inverse_impl']} "
+        f"smem={d['smem_bytes']} B/block launches="
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if check_memory:
+        r.update(peak_bytes=peak, before_bytes=before,
+                 estimate_bytes=d["batch_bytes"])
+        log(f"  peak device memory {peak} (before {before}) vs "
+            f"estimate_batch_bytes {d['batch_bytes']} (peak / estimate "
+            f"{peak / d['batch_bytes']:.3f})")
+        if peak > d["batch_bytes"]:
+            fail(f"plan({B}, impl={label!r}): peak {peak} over "
+                 f"estimate_batch_bytes {d['batch_bytes']}")
+    for what, a in (("inverse_batch", fs), ("forward_batch", backs)):
+        if not (torch.isfinite(a.real).all() and torch.isfinite(a.imag).all()):
+            fail(f"plan({B}, impl={label!r}).{what}: non-finite values")
+        b = refs[what].to(a.device)
+        same = bool(torch.equal(a, b))
+        diff = float((a - b).abs().max())
+        close = bool(torch.allclose(a, b, rtol=SCHED_RTOL, atol=SCHED_ATOL))
+        del b
+        r[f"{what}_equal_fused"] = same
+        r[f"{what}_max_diff_vs_fused"] = diff
+        log(f"  plan({B}, impl={label!r}).{what} vs plan({B}): equal "
+            f"{same}, max|d| {diff:.3e}, allclose(rtol {SCHED_RTOL:g}, "
+            f"atol {SCHED_ATOL:g}) {close}")
+        if label == "onthefly" and not same:
+            fail(f"plan({B}, impl='onthefly').{what} != plan({B})")
+        if not close:
+            fail(f"plan({B}, impl={label!r}).{what} outside rtol "
+                 f"{SCHED_RTOL:g} / atol {SCHED_ATOL:g} of plan({B})")
+    if label != "onthefly":
+        worst = [roundtrip_metric(fhats[i], backs[i])
+                 for i in range(len(fhats))]
+        r["roundtrip_abs"] = max(w[0] for w in worst)
+        r["roundtrip_rel"] = max(w[1] for w in worst)
+        log(f"  roundtrip (worst of {len(fhats)}): abs "
+            f"{r['roundtrip_abs']:.3e} rel {r['roundtrip_rel']:.3e}")
+        check_roundtrip(B, r["roundtrip_abs"], r["roundtrip_rel"])
+        f0, b0 = t.inverse(fhats[0]), t.forward(fs[0])
+        for what, a, b in (("inverse", fs[0], f0), ("forward", backs[0], b0)):
+            same = bool(torch.equal(a, b))
+            r[f"lane0_equals_single_{what}"] = same
+            log(f"  batched lane 0 == single {what}: {same}")
+            if not same:
+                fail(f"plan({B}, impl={label!r}): batched lane 0 != single "
+                     f"{what}")
+        del f0, b0
+    r["inverse_batch_ms"] = host_ms(lambda: t.inverse_batch(fhats), 3)
+    r["forward_batch_ms"] = host_ms(lambda: t.forward_batch(fs), 3)
+    log(f"  plan({B}, impl={label!r}): inverse_batch({len(fhats)}) "
+        f"{r['inverse_batch_ms']:.2f} ms, forward_batch "
+        f"{r['forward_batch_ms']:.2f} ms (host clock)")
+    del fs, backs
+    torch.cuda.empty_cache()
+    return r
+
+
+def free_plans():
+    """Drop every memoized plan and Transform (what the caller still
+    holds stays) and return the freed memory to the card."""
+    import gc
+    import torch
+    import repro_torch
+    repro_torch.plan.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def single_roundtrip(B: int):
     import torch
     import repro_torch
@@ -858,7 +1138,7 @@ def big_roundtrip(B: int, mem128: dict) -> dict:
             "kernels_full_shape": full}
 
 
-_BUCKETS = (("fused DWT kernels", ("dwt_fused",)),
+_BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel")),
             ("cuFFT", ("fft",)),
             ("gather / scatter", ("index", "gather", "scatter")),
             ("cat / stack", ("Cat",)))
@@ -914,7 +1194,9 @@ def profile(t, fs, path: pathlib.Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the main path")
+                    help="add torch.profiler breakdowns of the main path, "
+                    "of plan(128, impl='dense') and of plan(128, "
+                    "streaming=False)")
     ap.add_argument("--profile-out", default="chiprun_out/profile_b128.txt")
     args = ap.parse_args()
 
@@ -963,7 +1245,18 @@ def main() -> int:
                     if c != p:
                         fail(f"{sym}: estimate {p} != kernel's {c} (J={J}, "
                              f"itemsize={itemsize}, inverse={inv})")
-    log("  shared-memory estimates agree with both libraries")
+    fn = runtime.library("dwt_dense").dwt_dense_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for span in (2, 16, 17, 128, 256):
+        for C2 in (16, 48, 128):
+            for itemsize in (4, 8):
+                c = fn(span, C2, itemsize)      # as compiled (static)
+                p = autotune.dense_smem_bytes(span, C2, itemsize)
+                if c != p:
+                    fail(f"dwt_dense_smem_bytes: estimate {p} != kernel's "
+                         f"{c} (span={span}, C2={C2}, itemsize={itemsize})")
+    log("  shared-memory estimates agree with every library")
 
     log("== 3. kernels against their plain versions")
     for B, dt, V, lc, prec in ((4, torch.float64, 1, 1, "fp32"),
@@ -1022,8 +1315,64 @@ def main() -> int:
     for name in ("build_windows", "dwt_streaming", "idwt_streaming"):
         if scounts.get(name, 0) < 1:
             fail(f"streaming path: kernel {name} never launched ({scounts})")
-    del t128, fhats128, fs128, backs128
+
+    # phase 3d runs here: plan(128, impl="dense")'s table stays resident
+    # from here on, and phase 4's peak must not count it
+    log("== 3d. on-the-fly, dense and ragged kernels against their plain "
+        "versions")
+    import repro_torch
+    for B, dt, V, tl in ((4, torch.float64, 1, 2), (8, torch.float32, 2, 4),
+                         (16, torch.float64, 3, 16), (32, torch.float64, 1, 4),
+                         (32, torch.float32, 3, 32)):
+        c = TableCase(repro_torch.plan(B, dt, impl="dense"), V, seed=B)
+        table_case(c, tl, time_it=False)
+        onthefly_case(c, time_it=False, equal_fused=True)
+        del c
+    t0 = time.perf_counter()
+    t_dense = repro_torch.plan(128, impl="dense")    # reused in phase 4c
+    log(f"  plan(128, impl='dense') built in {time.perf_counter() - t0:.1f} s"
+        f" (table {tuple(t_dense.soft_plan.d.shape)})")
+    c = TableCase(t_dense, 8, seed=1281)
+    trecs = table_case(c, 16, time_it=True)
+    orecs = onthefly_case(c, time_it=True, equal_fused=True)
+    del c
+    c = TableCase(repro_torch.plan(64, torch.float32, impl="dense"), 8,
+                  seed=641)
+    trecs32 = table_case(c, 16, time_it=True)
+    orecs32 = onthefly_case(c, time_it=True, equal_fused=True)
+    del c
     torch.cuda.empty_cache()
+
+    log("== 4c. other schedules: plan(128, impl='onthefly' | 'dense' | "
+        "'ragged', tl=16)")
+    refs = {"inverse_batch": fs128.cpu(), "forward_batch": backs128.cpu()}
+    sched = {"onthefly": schedule_pair(
+        128, "onthefly", repro_torch.plan(128, impl="onthefly"), fhats128,
+        refs, check_memory=False)}
+    if args.profile:     # the table-built glue beside phase 4's slabs
+        for label, kw in (("dense", dict(impl="dense")),
+                          ("fused_table", dict(streaming=False))):
+            log(f"  profile of plan(128, {kw}):")
+            sched[f"profile_{label}"] = profile(
+                repro_torch.plan(128, **kw), fs128,
+                ROOT / args.profile_out.replace(".txt", f"_{label}.txt"))
+    t_ragged = repro_torch.plan(128, impl="ragged", tl=16)  # t_dense's table
+    # each table plan's peak is its own: only its plan and the input stay
+    del t128, fs128, backs128
+    free_plans()
+    for label, t in (("dense", t_dense), ("ragged", t_ragged)):
+        sched[label] = schedule_pair(128, label, t, fhats128, refs,
+                                     check_memory=True)
+    sched_kernels = {"onthefly": ("dwt_onthefly", "idwt_onthefly"),
+                     "dense": ("dwt_dense", "idwt_dense"),
+                     "ragged": ("dwt_ragged", "idwt_dense")}
+    for label, names in sched_kernels.items():
+        for name in names:
+            if sched[label]["launches"].get(name, 0) < 1:
+                fail(f"plan(128, impl={label!r}): kernel {name} never "
+                     f"launched ({sched[label]['launches']})")
+    del fhats128, t_dense, t_ragged, t, refs
+    free_plans()       # phases 5-6 measure their own peaks
 
     log("== 5. plan(256): single inverse -> forward; bf16 against fp32")
     counts256, ms256, rt256 = single_roundtrip(256)
@@ -1037,15 +1386,21 @@ def main() -> int:
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
                                               "dwt_streaming",
-                                              "idwt_streaming")}}
-    at_keys = ("B", "dtype", "V", "shape", "rows", "lchunk", "precision")
+                                              "idwt_streaming")},
+                   **{k: sched[label]["launches"][k]
+                      for label, k in (("onthefly", "dwt_onthefly"),
+                                       ("onthefly", "idwt_onthefly"),
+                                       ("dense", "dwt_dense"),
+                                       ("dense", "idwt_dense"),
+                                       ("ragged", "dwt_ragged"))}}
+    at_keys = ("B", "dtype", "V", "shape", "rows", "lchunk", "precision",
+               "tl", "work_blocks", "dense_blocks")
     kernels = []
     for name, meta in KERNELS.items():
-        main_rec = {**recs, **srecs}[name]
-        extra = {
-            "f32_B64": {**recs32, **srecs32}[name],
-            "B512_subset_J1024": {**recs1024, **srecs1024}[name],
-        }
+        main_rec = {**recs, **srecs, **trecs, **orecs}[name]
+        extra = {"f32_B64": {**recs32, **srecs32, **trecs32, **orecs32}[name]}
+        if name in {**recs1024, **srecs1024}:
+            extra["B512_subset_J1024"] = {**recs1024, **srecs1024}[name]
         if name in srecs_bf:
             extra["bf16_B128_f32"] = srecs_bf[name]
             extra["bf16_B128_f32_lchunk16"] = srecs_bf16c[name]
@@ -1062,17 +1417,23 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "library": None if name == "build_windows" else
+            "torch.bmm against plan(B, impl='dense')'s (K, L, J) table"
+            if name in {**trecs, **orecs} else
             "torch.bmm against wigner_rec_table_ref's (K, L, J) table",
+            **({"fused_ms": main_rec["fused_ms"]} if "fused_ms" in main_rec
+               else {}),
             "at": {k: main_rec[k] for k in at_keys if k in main_rec},
             "more": {k: {kk: v.get(kk) for kk in
                          ("max_err_vs_plain", "ms", "plain_ms", "library_ms",
-                          "bound_ms", "bound_by", "B", "dtype", "V", "lchunk",
-                          "precision", "shape") if kk in v}
+                          "bound_ms", "bound_by", "fused_ms", "B", "dtype",
+                          "V", "lchunk", "precision", "tl", "shape")
+                         if kk in v}
                      for k, v in extra.items()},
             "launches_b256_single": counts256.get(name, 0),
             "launches_b512_single": r512["launches"].get(name, 0),
         })
     summary = {"main_path_b128_v8": timing, "streaming_path_b128": stiming,
+               "schedules_path_b128": sched,
                "b256_single_roundtrip_ms": ms256,
                "b256_roundtrip": rt256, "b256_bf16": bf16_256, "b512": {k: v for k, v in r512.items()
                                                  if k != "kernels_full_shape"},

@@ -22,6 +22,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -30,7 +31,10 @@ from . import clusters as clusters_mod
 from . import quadrature, wigner
 
 __all__ = ["SoftPlan", "build_plan", "soft_plan_from_arrays",
-           "resolve_device", "plan_cache_stats", "plan_lstart",
+           "resolve_device", "plan_cache_stats", "clear_plan_cache",
+           "plan_memo", "plan_lstart",
+           "bucket_boundaries_from_lstart", "bucket_boundaries",
+           "make_bucketed_dwt_fn",
            "fft_analysis", "fft_synthesis",
            "fft_analysis_slab", "streamed_rhs", "streamed_synthesis",
            "dwt_apply", "idwt_apply",
@@ -181,6 +185,31 @@ def plan_cache_stats() -> dict:
     return dict(_PLAN_CACHE_STATS, plans=len(_PLAN_CACHE))
 
 
+def clear_plan_cache() -> None:
+    """Drop the build_plan memo and zero its counters.  A plan nobody
+    else holds is then freed, and with it every :func:`plan_memo` entry
+    made for it."""
+    _PLAN_CACHE.clear()
+    for k in _PLAN_CACHE_STATS:
+        _PLAN_CACHE_STATS[k] = 0
+
+
+def plan_memo(fn):
+    """Memoize ``fn(plan, *args)`` per plan identity, weakly: a plan's
+    entries go when the plan does, so no memo keeps a plan's tables (a
+    dense plan's (K, L, J) table) alive.  The memoized values must not
+    hold the plan."""
+    memo: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    @functools.wraps(fn)
+    def memoized(plan, *args):
+        per_plan = memo.setdefault(plan, {})
+        if args not in per_plan:
+            per_plan[args] = fn(plan, *args)
+        return per_plan[args]
+    return memoized
+
+
 def plan_arrays(B: int, *, pad_to: int | None = None,
                 order: np.ndarray | None = None,
                 streaming: bool = False) -> tuple[dict, int]:
@@ -272,6 +301,59 @@ def plan_lstart(plan: SoftPlan) -> np.ndarray:
     l_start = np.full(plan.n_padded, plan.B - 1, np.int32)
     l_start[: plan.n_clusters] = plan.table.rep[:, 0]
     return l_start
+
+
+def bucket_boundaries_from_lstart(l_start: np.ndarray, n_shards: int,
+                                  n_buckets: int):
+    """Static (k0, k1, l0) LOCAL bucket slices for the bucketed DWT.
+
+    l_start: (Kp,) per-cluster first valid degree in the (padded,
+    permuted) global order.  Every contiguous Kp/n_shards block must be
+    extent-sorted (a shard-balanced order), so boundaries computed at
+    local offsets hold for every shard at once (l0 = min over shards)."""
+    K = len(l_start)
+    kloc = K // n_shards
+    per_shard = np.asarray(l_start).reshape(n_shards, kloc)
+    bounds = np.linspace(0, kloc, n_buckets + 1).astype(int)
+    out = []
+    for i in range(n_buckets):
+        k0, k1 = int(bounds[i]), int(bounds[i + 1])
+        if k0 == k1:
+            continue
+        out.append((k0, k1, int(per_shard[:, k0:k1].min())))
+    return tuple(out)
+
+
+@plan_memo
+def bucket_boundaries(plan: SoftPlan, n_shards: int, n_buckets: int):
+    """:func:`bucket_boundaries_from_lstart` of the plan, memoized per
+    (plan, n_shards, n_buckets)."""
+    return bucket_boundaries_from_lstart(plan_lstart(plan), n_shards,
+                                         n_buckets)
+
+
+def make_bucketed_dwt_fn(plan: SoftPlan, n_shards: int = 1,
+                         n_buckets: int = 8):
+    """dwt_fn with a static l-truncation per extent bucket (the ragged
+    skip as plain torch): each bucket contracts only its rows l >= l0,
+    skipping the zero triangle.  Dense plans only."""
+    plan.require_dense("make_bucketed_dwt_fn")
+    slices = bucket_boundaries(plan, n_shards, n_buckets)
+    kloc = plan.n_padded // n_shards
+
+    def fn(p: SoftPlan, rhs):
+        # per shard block, so the local slices line up (one block for 1)
+        K, J, C, _ = rhs.shape
+        rhs2 = rhs.reshape(n_shards, kloc, J, C * 2)
+        d3 = p.d.reshape(n_shards, kloc, p.d.shape[1], J)
+        outs = []
+        for k0, k1, l0 in slices:
+            o = torch.einsum("sklj,skjc->sklc", d3[:, k0:k1, l0:, :],
+                             rhs2[:, k0:k1])
+            outs.append(torch.nn.functional.pad(o, (0, 0, l0, 0)))
+        return torch.cat(outs, dim=1).reshape(K, -1, C, 2)
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,13 @@
 
   * :data:`PRECISION_ERROR_BOUNDS` / :data:`FP32_ROUNDTRIP_BOUNDS` -- the
     reference's accuracy gates, copied as they are.
-  * :func:`estimate_smem_bytes` -- the dynamic shared memory one block of
-    the fused kernels asks for (it mirrors ``dwt_fused_smem_bytes`` in
-    ``csrc/dwt_fused.cu``), checked against the 227 KB a Hopper block
-    may use.  It replaces the TPU's VMEM estimate and 12 MiB guard.
+  * :func:`estimate_smem_bytes` / :func:`dense_smem_bytes` -- the shared
+    memory one block of the recurrence kernels (fused, streaming,
+    on-the-fly; ``dwt_fused_smem_bytes`` in ``csrc/dwt_fused.cu``) and of
+    the table kernels (dense, ragged; ``dwt_dense_smem_bytes`` in
+    ``csrc/dwt_dense.cu``) asks for, checked against the 227 KB a Hopper
+    block may use.  They replace the TPU's VMEM estimate and 12 MiB
+    guard.
   * :func:`static_lane_width` -- the ``V="auto"`` rule: the widest of
     1/2/4/8 lanes whose batch buffers fit half the device memory.
   * :func:`static_precision` / :func:`static_lchunk` -- the precision and
@@ -22,7 +25,8 @@ import torch
 __all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
            "PRECISION_BOUND_EXTRAPOLATED", "FP32_ROUNDTRIP_BOUNDS",
            "SMEM_LIMIT_BYTES", "V_CANDIDATES", "V_RULE",
-           "estimate_smem_bytes", "window_bytes", "estimate_batch_bytes",
+           "estimate_smem_bytes", "dense_smem_bytes", "table_bytes",
+           "window_bytes", "estimate_batch_bytes",
            "dense_table_host_bytes", "device_memory_bytes",
            "static_lane_width", "static_precision", "static_lchunk"]
 
@@ -71,13 +75,35 @@ def estimate_smem_bytes(J: int, itemsize: int, *, inverse: bool) -> int:
     """Dynamic shared memory of one fused-kernel block: kLT staged Wigner
     rows over the padded J, the forward's per-warp partial sums (the
     inverse's staged lhs rows instead) and kLT (A, mu, C) triples.  The
-    streaming kernels run the same block body (``csrc/dwt_block.cuh``):
-    the same figure, whatever lchunk and precision
-    (``streaming_smem_bytes`` in ``csrc/streaming.cu``)."""
+    streaming and on-the-fly kernels run the same block body
+    (``csrc/dwt_block.cuh``): the same figure, whatever lchunk and
+    precision (``streaming_smem_bytes`` in ``csrc/streaming.cu``; the
+    on-the-fly kernels are instantiations in ``csrc/dwt_fused.cu``)."""
     nw = -(-J // _WARP)
     rows = _LT * nw * _WARP
     extra = _LT * _CS if inverse else nw * _LT * _CS
     return itemsize * (rows + extra) + 3 * itemsize * _LT
+
+
+# Block geometry of csrc/dwt_dense.cu: 16 x 16 threads, kKC = 16
+# contraction indices staged per round.
+_DENSE_T, _DENSE_KC = 16, 16
+
+
+def dense_smem_bytes(span: int, C2: int, itemsize: int) -> int:
+    """Static shared memory of one dense / ragged block: the staged table
+    chunk (kKC x (BR + 1)) and operand chunk (kKC x BC), where a unit of
+    ``span`` output rows (L forward, J inverse, tl ragged) takes BR = 16
+    rows if span <= 16, else 64, and C2 lanes BC = 16 if C2 <= 16, else
+    64."""
+    br = _DENSE_T * (1 if span <= _DENSE_T else 4)
+    bc = _DENSE_T * (1 if C2 <= _DENSE_T else 4)
+    return itemsize * _DENSE_KC * ((br + 1) + bc)
+
+
+def table_bytes(B: int, K: int, itemsize: int) -> int:
+    """Device bytes of a plan's dense (K, L, J) Wigner table."""
+    return K * B * 2 * B * itemsize
 
 
 def window_bytes(B: int, K: int, lchunk: int | None, precision: str,
@@ -92,20 +118,25 @@ def window_bytes(B: int, K: int, lchunk: int | None, precision: str,
 
 def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
                          lchunk: int | None = None,
-                         precision: str = "fp32") -> int:
+                         precision: str = "fp32", table: bool = False) -> int:
     """Device bytes live at the peak of one V-lane batch call, counted
     from core.batched's buffers (the forward and the inverse hold the
     same set):
 
       * the plan's resident seed rows (K x J, and their launch-order
-        copy) and the streaming window stack (:func:`window_bytes`);
+        copy), the streaming window stack (:func:`window_bytes`) and,
+        with ``table`` (a plan built with its dense Wigner table), the
+        (K, L, J) table (:func:`table_bytes`);
       * per transform: the input and the output (a (2B)^3 complex grid
         and a (B, 2B, 2B) complex coefficient block), the lane-packed
         kernel operand and result (K x J and K x L rows of 16 lanes), and
         for V > 1 the packed copy of the operand;
-      * five beta-slab temporaries of one grid's (2B+1)^2 x J/4 complex
-        values per transform (FFT outputs, gathered members, scatter
-        buffers)."""
+      * the grid stages' temporaries per transform: a plan without the
+        table runs them in beta slabs, five slabs of one grid's
+        (2B+1)^2 x J/4 complex values (FFT outputs, gathered members,
+        scatter buffers); a plan with it runs them on whole grids, two
+        grids (the FFT output and its stacked copy) and two member
+        stacks (the reflected gather and its weighted copy)."""
     c = 2 * itemsize                             # one complex value
     J = 2 * B
     grid = (2 * B) ** 3 * c
@@ -113,9 +144,11 @@ def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
     wide = K * J * 16 * itemsize                 # rhs / g
     narrow = K * B * 16 * itemsize               # out / lhs
     slab = (2 * B + 1) ** 2 * -(-J // 4) * c
-    per = grid + coeffs + wide + narrow + 5 * slab + (wide if V > 1 else 0)
+    temps = 2 * grid + 2 * wide if table else 5 * slab
+    per = grid + coeffs + wide + narrow + temps + (wide if V > 1 else 0)
     return 2 * K * J * itemsize + window_bytes(B, K, lchunk, precision,
-                                               itemsize) + V * per
+                                               itemsize) \
+        + (table_bytes(B, K, itemsize) if table else 0) + V * per
 
 
 def dense_table_host_bytes(B: int, itemsize: int) -> int:
@@ -135,12 +168,13 @@ def device_memory_bytes(device: torch.device) -> int:
 
 def static_lane_width(B: int, K: int, itemsize: int,
                       device: torch.device, *, lchunk: int | None = None,
-                      precision: str = "fp32") -> int:
+                      precision: str = "fp32", table: bool = False) -> int:
     """The V="auto" rule (:data:`V_RULE`)."""
     budget = device_memory_bytes(device) // 2
     fits = [v for v in V_CANDIDATES
             if estimate_batch_bytes(B, K, v, itemsize, lchunk=lchunk,
-                                    precision=precision) <= budget]
+                                    precision=precision,
+                                    table=table) <= budget]
     return max(fits) if fits else 1
 
 

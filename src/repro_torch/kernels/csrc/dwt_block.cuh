@@ -1,5 +1,6 @@
-// The block body shared by the fused (dwt_fused.cu) and the l-chunked
-// streaming (streaming.cu) DWT / iDWT kernels.
+// The block body shared by the fused and on-the-fly (dwt_fused.cu) and
+// the l-chunked streaming (streaming.cu) DWT / iDWT kernels, and the one
+// launcher they all go through (launch_block).
 //
 // One block owns one cluster k and a slice of kCS = 32 output lanes.  It
 // has ceil(J / 32) warps; thread (warp w, lane i) marches the Wigner
@@ -208,6 +209,24 @@ __device__ __forceinline__ void store_acc(const T (&acc)[kWarp], T* g_k, int J, 
     const int jj = w * kWarp + i;
     if (jj < J) g_k[size_t(jj) * C2 + c] = acc[i];
   }
+}
+
+// Launch a kernel that runs this block body: ceil(J / 32) warps a block
+// and the forward's or the inverse's dynamic shared memory.  k512 / k1024
+// are the kernel instantiated with __launch_bounds__(512) / (1024): up to
+// 512 threads a block may keep 128 registers a thread, so the 32
+// register-resident rhs / accumulator values do not spill there.
+template <typename T, typename... Params, typename... Args>
+cudaError_t launch_block(void (*k512)(Params...), void (*k1024)(Params...), bool inverse,
+                         dim3 grid, int J, cudaStream_t stream, Args... args) {
+  if (J <= 0 || J > 1024) return cudaErrorInvalidValue;
+  const auto kernel = J <= 512 ? k512 : k1024;
+  const size_t smem = inverse ? inv_smem_bytes<T>(J) : fwd_smem_bytes<T>(J);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, dim3(n_warps(J) * kWarp), smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace repro

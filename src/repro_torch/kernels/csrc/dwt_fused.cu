@@ -1,4 +1,5 @@
-// Fused ragged + on-the-fly clustered DWT / iDWT for Hopper (sm_90a).
+// Fused ragged + on-the-fly clustered DWT / iDWT for Hopper (sm_90a), and
+// the on-the-fly DWT / iDWT over every degree.
 //
 // Replaces the Pallas TPU kernels `dwt_fused` (_fused_fwd_kernel) and
 // `idwt_fused` (_fused_inv_kernel) of repro/kernels/dwt_fused.py:
@@ -48,6 +49,21 @@
 // Each lane slice recomputes its cluster's recurrence (C2 / 32 times per
 // cluster, 4x at V = 8); the recurrence is ~8 operations per (j, l)
 // against 64 for the slice's contraction.
+//
+// The on-the-fly kernels (kEvery) replace `dwt_onthefly` (_fwd_kernel) and
+// `idwt_onthefly` (_inv_kernel) of repro/kernels/wigner_rec.py: the same
+// kernels with clusters in the plan's order (no perm, no tile l-starts)
+// and every block marching EVERY degree from l = 0.  Rows below the
+// cluster's m are zero by the recurrence's active mask, not skipped.  This
+// is the no-skip baseline the reference's autotuner and benchmarks compare
+// the fused schedule against, so it must not take the first-degree
+// shortcut.  Its outputs equal the fused kernels' by value: from l = m on
+// both run the same state through the same block body, and a row's sums do
+// not depend on where the march started.  It generates and contracts
+// every row, K L (2 J C2 + 5 J) operations (71 GFLOP at B = 128, f64,
+// V = 8), about three times the fused kernels' ragged rows, against the
+// same operand bytes: its floor is the operation term at the f64
+// tensor-core rate.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -58,7 +74,8 @@ namespace {
 
 using namespace repro;
 
-template <typename T, int kMaxThreads>
+// kEvery: the on-the-fly kernels (every degree from l = 0; l0s unused).
+template <typename T, int kMaxThreads, bool kEvery>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 dwt_fused_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
               const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
@@ -72,7 +89,7 @@ dwt_fused_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   const int c0 = blockIdx.y * kCS;
   const int j = threadIdx.x;
   const int m = m_arr[k], mp = mp_arr[k];
-  const int lbeg = first_degree(l0s[k / tk], m, L);
+  const int lbeg = kEvery ? 0 : first_degree(l0s[k / tk], m, L);
 
   T* out_k = out + size_t(row) * L * C2;
   zero_rows(out_k, 0, lbeg, C2, c0);
@@ -86,7 +103,7 @@ dwt_fused_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   fwd_rows<T, false>(lbeg, L, m, mp, cb, seed, d_prev, d_cur, r, sm, out_k, C2, c0);
 }
 
-template <typename T, int kMaxThreads>
+template <typename T, int kMaxThreads, bool kEvery>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 dwt_fused_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
               const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
@@ -100,7 +117,7 @@ dwt_fused_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   const int c0 = blockIdx.y * kCS;
   const int j = threadIdx.x;
   const int m = m_arr[k], mp = mp_arr[k];
-  const int lbeg = first_degree(l0s[k / tk], m, L);
+  const int lbeg = kEvery ? 0 : first_degree(l0s[k / tk], m, L);
 
   T acc[kWarp];
 #pragma unroll
@@ -113,69 +130,54 @@ dwt_fused_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   store_acc(acc, g + size_t(row) * J * C2, J, C2, c0);
 }
 
-template <typename T, int kMaxThreads>
-cudaError_t launch(bool inverse, const T* seeds, const int* m, const int* mp,
-                   const T* cb, const T* x, const int* l0s, const int* perm, T* y,
-                   int K, int J, int L, int C2, int tk, cudaStream_t stream) {
-  const dim3 grid(K, (C2 + kCS - 1) / kCS);
-  const dim3 block(n_warps(J) * kWarp);
-  const size_t smem = inverse ? inv_smem_bytes<T>(J) : fwd_smem_bytes<T>(J);
-  auto kernel = inverse ? dwt_fused_inv<T, kMaxThreads> : dwt_fused_fwd<T, kMaxThreads>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, block, smem, stream>>>(seeds, m, mp, cb, x, l0s, perm, y, J, L, C2, tk);
-  return cudaGetLastError();
-}
-
-template <typename T>
+template <typename T, bool kEvery>
 int dispatch(bool inverse, const void* seeds, const void* m, const void* mp,
              const void* cb, const void* x, const void* l0s, const void* perm,
              void* y, int K, int J, int L, int C2, int tk, void* stream) {
-  if (K <= 0 || J <= 0 || L <= 0 || C2 <= 0 || tk <= 0 || J > 1024)
-    return int(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto launcher) {
-    return launcher(inverse, static_cast<const T*>(seeds), static_cast<const int*>(m),
-                    static_cast<const int*>(mp), static_cast<const T*>(cb),
-                    static_cast<const T*>(x), static_cast<const int*>(l0s),
-                    static_cast<const int*>(perm), static_cast<T*>(y), K, J, L, C2, tk, s);
-  };
-  // Up to 512 threads a block may keep 128 registers a thread: the 32
-  // register-resident rhs / accumulator values do not spill.
-  if (J <= 512) return int(args(launch<T, 512>));
-  return int(args(launch<T, 1024>));
+  if (K <= 0 || L <= 0 || C2 <= 0 || tk <= 0) return int(cudaErrorInvalidValue);
+  const auto k512 = inverse ? dwt_fused_inv<T, 512, kEvery> : dwt_fused_fwd<T, 512, kEvery>;
+  const auto k1024 = inverse ? dwt_fused_inv<T, 1024, kEvery> : dwt_fused_fwd<T, 1024, kEvery>;
+  return int(launch_block<T>(
+      k512, k1024, inverse, dim3(K, (C2 + kCS - 1) / kCS), J, static_cast<cudaStream_t>(stream),
+      static_cast<const T*>(seeds), static_cast<const int*>(m), static_cast<const int*>(mp),
+      static_cast<const T*>(cb), static_cast<const T*>(x), static_cast<const int*>(l0s),
+      static_cast<const int*>(perm), static_cast<T*>(y), J, L, C2, tk));
 }
 
 }  // namespace
+
+#define REPRO_FUSED_ENTRY(TNAME, T)                                                             \
+  int dwt_fused_##TNAME(const void* seeds, const void* m, const void* mp, const void* cb,       \
+                        const void* rhs, const void* l0s, const void* perm, void* out, int K,   \
+                        int J, int L, int C2, int tk, void* stream) {                           \
+    return dispatch<T, false>(false, seeds, m, mp, cb, rhs, l0s, perm, out, K, J, L, C2, tk,    \
+                              stream);                                                          \
+  }                                                                                             \
+  int idwt_fused_##TNAME(const void* seeds, const void* m, const void* mp, const void* cb,      \
+                         const void* lhs, const void* l0s, const void* perm, void* g, int K,    \
+                         int J, int L, int C2, int tk, void* stream) {                          \
+    return dispatch<T, false>(true, seeds, m, mp, cb, lhs, l0s, perm, g, K, J, L, C2, tk,       \
+                              stream);                                                          \
+  }                                                                                             \
+  int dwt_onthefly_##TNAME(const void* seeds, const void* m, const void* mp, const void* cb,    \
+                           const void* rhs, void* out, int K, int J, int L, int C2,             \
+                           void* stream) {                                                      \
+    return dispatch<T, true>(false, seeds, m, mp, cb, rhs, nullptr, nullptr, out, K, J, L, C2,  \
+                             1, stream);                                                        \
+  }                                                                                             \
+  int idwt_onthefly_##TNAME(const void* seeds, const void* m, const void* mp, const void* cb,   \
+                            const void* lhs, void* g, int K, int J, int L, int C2,              \
+                            void* stream) {                                                     \
+    return dispatch<T, true>(true, seeds, m, mp, cb, lhs, nullptr, nullptr, g, K, J, L, C2, 1,  \
+                             stream);                                                           \
+  }
 
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = queued on `stream`).
 // perm may be null (identity).
-int dwt_fused_f32(const void* seeds, const void* m, const void* mp, const void* cb,
-                  const void* rhs, const void* l0s, const void* perm, void* out, int K,
-                  int J, int L, int C2, int tk, void* stream) {
-  return dispatch<float>(false, seeds, m, mp, cb, rhs, l0s, perm, out, K, J, L, C2, tk, stream);
-}
-
-int dwt_fused_f64(const void* seeds, const void* m, const void* mp, const void* cb,
-                  const void* rhs, const void* l0s, const void* perm, void* out, int K,
-                  int J, int L, int C2, int tk, void* stream) {
-  return dispatch<double>(false, seeds, m, mp, cb, rhs, l0s, perm, out, K, J, L, C2, tk, stream);
-}
-
-int idwt_fused_f32(const void* seeds, const void* m, const void* mp, const void* cb,
-                   const void* lhs, const void* l0s, const void* perm, void* g, int K,
-                   int J, int L, int C2, int tk, void* stream) {
-  return dispatch<float>(true, seeds, m, mp, cb, lhs, l0s, perm, g, K, J, L, C2, tk, stream);
-}
-
-int idwt_fused_f64(const void* seeds, const void* m, const void* mp, const void* cb,
-                   const void* lhs, const void* l0s, const void* perm, void* g, int K,
-                   int J, int L, int C2, int tk, void* stream) {
-  return dispatch<double>(true, seeds, m, mp, cb, lhs, l0s, perm, g, K, J, L, C2, tk, stream);
-}
+REPRO_FUSED_ENTRY(f32, float)
+REPRO_FUSED_ENTRY(f64, double)
 
 // Dynamic shared memory a launch asks for, in bytes (the host-side
 // estimate in kernels/autotune.py must agree).

@@ -164,40 +164,22 @@ dwt_stream_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   store_acc(acc, g + size_t(row) * J * C2, J, C2, c0);
 }
 
-template <typename T, typename S, int kMaxThreads>
-cudaError_t launch(bool inverse, const T* seeds, const int* m, const int* mp, const T* cb,
-                   const T* x, const int* l0s, const int* perm, const S* win, T* y, int K,
-                   int J, int L, int C2, int tk, int lchunk, cudaStream_t stream) {
-  const int slices = (C2 + kCS - 1) / kCS;
-  const dim3 block(n_warps(J) * kWarp);
-  const size_t smem = inverse ? inv_smem_bytes<T>(J) : fwd_smem_bytes<T>(J);
-  auto kernel = inverse ? dwt_stream_inv<T, S, kMaxThreads> : dwt_stream_fwd<T, S, kMaxThreads>;
-  const dim3 grid = inverse ? dim3(K, slices) : dim3(K, slices, L / lchunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, block, smem, stream>>>(seeds, m, mp, cb, x, l0s, perm, win, y, K, J, L, C2,
-                                        tk, lchunk);
-  return cudaGetLastError();
-}
-
 template <typename T, typename S>
 int dispatch(bool inverse, const void* seeds, const void* m, const void* mp, const void* cb,
              const void* x, const void* l0s, const void* perm, const void* win, void* y,
              int K, int J, int L, int C2, int tk, int lchunk, void* stream) {
-  if (K <= 0 || J <= 0 || L <= 0 || C2 <= 0 || tk <= 0 || J > 1024 || lchunk <= 0 ||
-      L % lchunk || L / lchunk > 65535)
+  if (K <= 0 || L <= 0 || C2 <= 0 || tk <= 0 || lchunk <= 0 || L % lchunk ||
+      L / lchunk > 65535)
     return int(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto launcher) {
-    return launcher(inverse, static_cast<const T*>(seeds), static_cast<const int*>(m),
-                    static_cast<const int*>(mp), static_cast<const T*>(cb),
-                    static_cast<const T*>(x), static_cast<const int*>(l0s),
-                    static_cast<const int*>(perm), static_cast<const S*>(win),
-                    static_cast<T*>(y), K, J, L, C2, tk, lchunk, s);
-  };
-  if (J <= 512) return int(args(launch<T, S, 512>));
-  return int(args(launch<T, S, 1024>));
+  const int slices = (C2 + kCS - 1) / kCS;
+  const auto k512 = inverse ? dwt_stream_inv<T, S, 512> : dwt_stream_fwd<T, S, 512>;
+  const auto k1024 = inverse ? dwt_stream_inv<T, S, 1024> : dwt_stream_fwd<T, S, 1024>;
+  return int(launch_block<T>(
+      k512, k1024, inverse, inverse ? dim3(K, slices) : dim3(K, slices, L / lchunk), J,
+      static_cast<cudaStream_t>(stream), static_cast<const T*>(seeds),
+      static_cast<const int*>(m), static_cast<const int*>(mp), static_cast<const T*>(cb),
+      static_cast<const T*>(x), static_cast<const int*>(l0s), static_cast<const int*>(perm),
+      static_cast<const S*>(win), static_cast<T*>(y), K, J, L, C2, tk, lchunk));
 }
 
 template <typename T, typename S>

@@ -19,17 +19,16 @@ place: launch block k uses operand row perm[k].
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from . import runtime
-from .wigner_rec import recurrence_step
+from .runtime import route
+from .wigner_rec import check_march_inputs, march_forward, march_inverse
 
 __all__ = ["build_tile_lstarts", "dwt_fused", "idwt_fused",
            "dwt_fused_plain", "idwt_fused_plain", "live_clusters",
-           "check_march_inputs", "check_operands", "route", "ptr",
+           "check_march_inputs", "check_operands", "route",
            "permute_rows", "unpermute_rows", "LAUNCHES", "reset_launches"]
 
 # kernel launches per wrapper; only the CUDA branch of a wrapper adds to it
@@ -90,90 +89,28 @@ def unpermute_rows(y, perm):
     return out
 
 
-# Lanes of one transform (C = 8 member slots x real/imag).  The plain
-# forward contracts each 16-lane group on its own: a BLAS product orders
-# its sums by the operand shape, and a lane's result must not depend on
-# how many transforms share the launch.
-_LANES = 16
-
-
 def dwt_fused_plain(seeds, m, mp, cos_beta, rhs, l0s, *, B: int, tk: int = 8):
-    """Plain torch forward: march :func:`recurrence_step` over all K
-    clusters for l = min(l0s) .. B-1 and contract each row with einsum,
-    one 16-lane transform group at a time.  Rows l < l0 of every tile are
-    zero."""
-    K, J = seeds.shape
-    tk = min(tk, K)
-    seeds, mf, mpf, cb = _march_inputs(seeds, m, mp, cos_beta, l0s, tk)
-    out = torch.zeros((K, B, rhs.shape[-1]), dtype=seeds.dtype,
-                      device=seeds.device)
-    d_prev = torch.zeros_like(seeds)
-    d_cur = torch.zeros_like(seeds)
-    groups = [rhs[:, :, c:c + _LANES].contiguous()
-              for c in range(0, rhs.shape[-1], _LANES)]
-    for l in range(int(l0s.min()), B):
-        row, d_prev, d_cur = recurrence_step(l, mf, mpf, cb, d_prev, d_cur,
-                                             seeds)
-        out[:, l, :] = torch.cat([torch.einsum("kj,kjc->kc", row, grp)
-                                  for grp in groups], dim=1)
-    return out
+    """Plain torch forward: :func:`repro_torch.kernels.wigner_rec.
+    march_forward` over all K clusters for l = min(l0s) .. B-1, the seed
+    rows of clusters that are not live zeroed.  Rows l < l0 of every tile
+    are zero."""
+    tk = min(tk, seeds.shape[0])
+    return march_forward(*_march_inputs(seeds, m, mp, cos_beta, l0s, tk),
+                         rhs, l_first=int(l0s.min()), B=B)
 
 
 def idwt_fused_plain(seeds, m, mp, cos_beta, lhs, l0s, *, B: int,
                      tk: int = 8):
     """Plain torch inverse: g = sum over l >= min(l0s) of
     row_l[:, :, None] * lhs[:, l, None, :]."""
-    K, J = seeds.shape
-    tk = min(tk, K)
-    seeds, mf, mpf, cb = _march_inputs(seeds, m, mp, cos_beta, l0s, tk)
-    g = torch.zeros((K, J, lhs.shape[-1]), dtype=seeds.dtype,
-                    device=seeds.device)
-    d_prev = torch.zeros_like(seeds)
-    d_cur = torch.zeros_like(seeds)
-    for l in range(int(l0s.min()), B):
-        row, d_prev, d_cur = recurrence_step(l, mf, mpf, cb, d_prev, d_cur,
-                                             seeds)
-        g += torch.einsum("kj,kc->kjc", row, lhs[:, l, :])
-    return g
+    tk = min(tk, seeds.shape[0])
+    return march_inverse(*_march_inputs(seeds, m, mp, cos_beta, l0s, tk),
+                         lhs, l_first=int(l0s.min()), B=B)
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
-
-def _kernel(name: str, dtype: torch.dtype):
-    lib = runtime.library("dwt_fused")
-    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def check_march_inputs(name, seeds, m, mp, cos_beta):
-    """Validate the recurrence inputs of a launch: seeds (K, J) float32
-    or float64, m, mp (K,) int32, cos_beta (J,), all contiguous on one
-    device, J <= 1024."""
-    K, J = seeds.shape
-    dev = seeds.device
-    if seeds.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: seeds must be float32 or float64, got "
-                        f"{seeds.dtype}")
-    for what, t, dt, shape in (("m", m, torch.int32, (K,)),
-                               ("mp", mp, torch.int32, (K,)),
-                               ("cos_beta", cos_beta, seeds.dtype, (J,))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {what} must be {dt} {shape} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if J > 1024:
-        raise ValueError(f"{name}: J={J} > 1024 (B > 512) is not supported")
-    for what, t in (("seeds", seeds), ("m", m), ("mp", mp),
-                    ("cos_beta", cos_beta)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
-
 
 def check_operands(name, seeds, m, mp, cos_beta, x, l0s, perm, *, rows: int,
                    tk: int):
@@ -201,32 +138,14 @@ def check_operands(name, seeds, m, mp, cos_beta, x, l0s, perm, *, rows: int,
     return K, J, x.shape[-1]
 
 
-def ptr(t) -> int | None:
-    """Device pointer of a tensor, None (a null pointer) for None."""
-    return None if t is None else t.data_ptr()
-
-
 def _launch(name, seeds, m, mp, cos_beta, x, l0s, perm, y, *, L, tk):
     K, J = seeds.shape
-    fn = _kernel(name, seeds.dtype)
-    with torch.cuda.device(seeds.device):
-        stream = torch.cuda.current_stream(seeds.device).cuda_stream
-        err = fn(seeds.data_ptr(), m.data_ptr(), mp.data_ptr(),
-                 cos_beta.data_ptr(), x.data_ptr(), l0s.data_ptr(),
-                 ptr(perm), y.data_ptr(), K, J, L, x.shape[-1], tk, stream)
-    runtime.check_launch(err, name)
+    runtime.launch("dwt_fused", f"{name}_{runtime.suffix(seeds.dtype)}",
+                   name, seeds.device,
+                   [seeds, m, mp, cos_beta, x, l0s, perm, y],
+                   [K, J, L, x.shape[-1], tk])
     LAUNCHES[name] += 1
     return y
-
-
-def route(name, x):
-    """"plain" for a CPU tensor, "kernel" for a CUDA one; raise for any
-    other device."""
-    if x.device.type == "cpu":
-        return "plain"
-    if x.device.type == "cuda":
-        return "kernel"
-    raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
 def dwt_fused(seeds, m, mp, cos_beta, rhs, l0s, *, B: int, tk: int = 8,

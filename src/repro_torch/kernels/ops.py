@@ -1,48 +1,56 @@
-"""Binds the fused-family DWT kernels to the clustered transforms -- the
-port of the fused and streaming branches of ``repro/kernels/ops.py``.
+"""Binds the DWT kernels to the clustered transforms -- the port of
+``repro/kernels/ops.py``.
 
   * :func:`make_dwt_fn` / :func:`make_idwt_fn` -- drop-in replacements for
     core.batched.dwt_apply / idwt_apply (plug into forward_clustered /
     inverse_clustered through their dwt_fn / idwt_fn argument), with
     ``batch=V`` packing V transforms onto the kernel's lane axis so one
-    launch serves the whole stack.  ``lchunk`` / ``precision="bf16"``
-    select the l-chunked streaming kernels (:mod:`.streaming`).
-  * :func:`onthefly_inputs` / :func:`fused_metadata` -- the per-plan seed
-    rows and the l-start-sorted tile schedule, memoized by plan identity.
+    launch serves the whole stack.  Schedules (``impl``):
+
+      "fused"    the ragged on-the-fly kernels (:mod:`.dwt_fused`);
+                 ``lchunk`` / ``precision="bf16"`` select their l-chunked
+                 streaming twins (:mod:`.streaming`)
+      "onthefly" every degree of every cluster, no skip (:mod:`.wigner_rec`)
+      "dense"    the plan's resident (K, L, J) table (:mod:`.dwt`)
+      "ragged"   the dense forward on the host work list of
+                 (cluster-tile, l-tile) blocks; forward only
+  * :func:`onthefly_inputs` / :func:`fused_metadata` /
+    :func:`_ragged_metadata` -- the per-plan seed rows, the
+    l-start-sorted tile schedule and the ragged work list, memoized per
+    plan, weakly (:func:`repro_torch.core.batched.plan_memo`): they go
+    with their plan.
   * :func:`streaming_inputs` -- the launch-order operands and the window
     stack of the streaming kernels, built once per (plan, tk, lchunk,
     precision, :func:`window_source`).
 
-The kernels run in the l-start-sorted cluster order and read and write
-the caller's (K, ., C2) stacks through ``perm`` in place: no permuted
-copy of a stack is ever made.
+The fused and ragged kernels run in the l-start-sorted cluster order and
+read and write the caller's (K, ., C2) stacks (and the ragged kernel the
+table) through ``perm`` in place: no permuted copy is ever made.
 """
 from __future__ import annotations
 
-import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import quadrature, wigner
-from repro_torch.core.batched import SoftPlan, plan_lstart, resolve_device
+from repro_torch.core.batched import (SoftPlan, plan_lstart, plan_memo,
+                                      resolve_device)
 
-from . import autotune, dwt_fused, streaming
+from . import autotune, dwt_fused, streaming, wigner_rec
+from . import dwt as dwt_kernels
 
 __all__ = ["make_dwt_fn", "make_idwt_fn", "onthefly_inputs",
            "onthefly_inputs_from_arrays", "fused_metadata", "check_impl",
+           "KERNEL_IMPLS", "RaggedMeta",
            "launch_inputs", "streaming_inputs", "window_source",
            "host_window_stack",
            "pack_lanes", "unpack_lanes", "pad_lanes"]
 
-# Schedules of the reference that this port does not run yet, and the
-# ROADMAP.md item that brings each.
-NOT_PORTED = {
-    "dense": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
-    "ragged": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
-    "onthefly": "ROADMAP.md queue 1 item 9 (other DWT schedules)",
-}
+# The schedules make_dwt_fn runs; the plan's "reference" is the einsum.
+KERNEL_IMPLS = ("dense", "ragged", "onthefly", "fused")
 
 
 def pack_lanes(x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +78,44 @@ def pad_lanes(x: torch.Tensor, V: int):
     return x, n
 
 
-@functools.lru_cache(maxsize=16)
+class RaggedMeta(NamedTuple):
+    """The ragged schedule of one (plan, tk, tl): host arrays as the
+    reference builds them (perm, l_start, kk, ll: numpy; n_dense: the
+    dense grid's block count) and their device tensors (perm_t, kk_t,
+    ll_t int32; mask: (K, L) bool, l >= l_start, in the plan's order)."""
+    perm: np.ndarray
+    l_start: np.ndarray
+    kk: np.ndarray
+    ll: np.ndarray
+    n_dense: int
+    perm_t: torch.Tensor
+    kk_t: torch.Tensor
+    ll_t: torch.Tensor
+    mask: torch.Tensor
+
+
+@plan_memo
+def _ragged_metadata(plan: SoftPlan, tk: int, tl: int) -> RaggedMeta:
+    """Host-side: sort clusters by l-start so tiles bucket uniform work,
+    then enumerate the work list's blocks (the reference's sort: padded
+    clusters get l_start 0 and sort to the front -- their table rows are
+    zero, and the mask covers them).  Memoized by (plan, tk, tl)
+    identity, device tensors and mask included."""
+    l_start = np.zeros(plan.n_padded, np.int32)
+    l_start[: plan.n_clusters] = plan.table.rep[:, 0]
+    perm = np.argsort(l_start, kind="stable").astype(np.int32)
+    kk, ll, n_dense = dwt_kernels.build_work_list(l_start[perm], tk, tl,
+                                                  plan.B)
+    dev = plan.device
+    mask = np.arange(plan.B)[None, :] >= l_start[:, None]
+    return RaggedMeta(perm, l_start, kk, ll, n_dense,
+                      torch.as_tensor(perm, device=dev),
+                      torch.as_tensor(kk, device=dev),
+                      torch.as_tensor(ll, device=dev),
+                      torch.as_tensor(mask, device=dev))
+
+
+@plan_memo
 def fused_metadata(plan: SoftPlan, tk: int):
     """Host-side ragged metadata for the fused kernels: sort clusters by
     ascending l-start (padded rows last, at B-1 -- their Wigner rows are
@@ -99,7 +144,7 @@ def onthefly_inputs_from_arrays(seeds, m, mp, cos_beta, *, device=None,
             torch.tensor(np.asarray(cos_beta), device=device, dtype=dt))
 
 
-@functools.lru_cache(maxsize=16)
+@plan_memo
 def onthefly_inputs(plan: SoftPlan):
     """Seeds/orders/cos(beta) for the fused kernels, on the plan's device.
 
@@ -154,16 +199,18 @@ def _wrap_batch(raw, batch):
 
 
 def check_impl(impl, lchunk, precision) -> None:
-    """Raise on a schedule this port does not run (NotImplementedError
-    naming its ROADMAP.md item) or does not know (ValueError)."""
+    """Raise ValueError on a schedule this port does not know, or on
+    streaming options (lchunk, precision="bf16") for a schedule that has
+    no streaming twin (all but "fused")."""
     if precision not in (None, *autotune.PRECISIONS):
         raise ValueError(f"precision must be 'fp32' or 'bf16', "
                          f"got {precision!r}")
-    if impl in NOT_PORTED:
-        raise NotImplementedError(f"impl={impl!r}: {NOT_PORTED[impl]}")
-    if impl != "fused":
-        raise ValueError(f"impl must be 'auto', 'fused' or 'reference', "
-                         f"got {impl!r}")
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"impl must be one of {KERNEL_IMPLS}, got {impl!r}")
+    if (lchunk is not None or precision == "bf16") and impl != "fused":
+        raise ValueError(
+            f"lchunk/precision='bf16' need the streaming kernels, which "
+            f"exist only for impl='fused' (got impl={impl!r})")
 
 
 def window_source() -> str:
@@ -217,7 +264,7 @@ def streaming_inputs(plan: SoftPlan, tk: int, lchunk: int, precision: str):
     return _streaming_inputs(plan, tk, lchunk, precision, window_source())
 
 
-@functools.lru_cache(maxsize=16)
+@plan_memo
 def _streaming_inputs(plan: SoftPlan, tk: int, lchunk: int, precision: str,
                       source: str):
     from repro_torch import obs
@@ -234,7 +281,7 @@ def _streaming_inputs(plan: SoftPlan, tk: int, lchunk: int, precision: str,
     return seeds, m, mp, cb, l0s, perm, windows
 
 
-@functools.lru_cache(maxsize=16)
+@plan_memo
 def launch_inputs(plan: SoftPlan, tk: int):
     """(seeds, m, mp, cos_beta, l0s, perm) in the kernels' launch order,
     on the plan's device; perm is int32 (K,)."""
@@ -246,8 +293,51 @@ def launch_inputs(plan: SoftPlan, tk: int):
     return (seeds[order], m[order], mp[order], cb, l0s, perm)
 
 
-def _kernel_fn(plan: SoftPlan, direction: str, tk: int, lchunk, precision,
-               batch):
+def _table_fn(plan: SoftPlan, direction: str, impl: str, tk: int, tl: int,
+              batch):
+    """The dense / ragged schedules, on the plan's resident table (the
+    kernels have no beta tile: tj is the whole J)."""
+    d = plan.require_dense(f"make_{direction}_fn(impl={impl!r})")
+    tj = d.shape[2]
+    tk, tl, _ = dwt_kernels.check_tiles(*d.shape, tk, tl, tj)
+    if impl == "dense":
+        kernel = dwt_kernels.dwt_dense if direction == "dwt" \
+            else dwt_kernels.idwt_dense
+
+        def raw(p: SoftPlan, x2):
+            return kernel(d, x2, tk=tk, tl=tl, tj=tj)
+        return _wrap_batch(raw, batch)
+
+    if direction == "idwt":
+        raise ValueError("impl='ragged' has no inverse kernel; its plans run "
+                         "the inverse on impl='dense' (Schedule.inverse_impl)")
+    meta = _ragged_metadata(plan, tk, tl)
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+
+    def raw(p: SoftPlan, x2):
+        out = dwt_kernels.dwt_ragged(d, x2, meta.kk_t, meta.ll_t, tk=tk,
+                                     tl=tl, tj=tj, perm=meta.perm_t)
+        return torch.where(meta.mask[:, :, None], out, zero)
+    return _wrap_batch(raw, batch)
+
+
+def _onthefly_fn(plan: SoftPlan, direction: str, tk: int, batch):
+    seeds, m, mp, cb = onthefly_inputs(plan)
+    kernel = wigner_rec.dwt_onthefly if direction == "dwt" \
+        else wigner_rec.idwt_onthefly
+
+    def raw(p: SoftPlan, x2):
+        return kernel(seeds, m, mp, cb, x2, B=p.B, tk=tk)
+    return _wrap_batch(raw, batch)
+
+
+def _kernel_fn(plan: SoftPlan, direction: str, impl: str, tk: int, tl: int,
+               lchunk, precision, batch):
+    check_impl(impl, lchunk, precision)
+    if impl in ("dense", "ragged"):
+        return _table_fn(plan, direction, impl, tk, tl, batch)
+    if impl == "onthefly":
+        return _onthefly_fn(plan, direction, tk, batch)
     tk = min(tk, plan.n_padded)
     if lchunk is None and precision != "bf16":
         seeds, m, mp, cb, l0s, perm = launch_inputs(plan, tk)
@@ -275,25 +365,27 @@ def _kernel_fn(plan: SoftPlan, direction: str, tk: int, lchunk, precision,
 
 
 def make_dwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
-                lchunk=None, precision=None, batch=None):
+                tl: int = 128, lchunk=None, precision=None, batch=None):
     """Build a dwt_fn(plan, rhs) for core.batched.forward_clustered.
 
-    impl: "fused" (the other schedules of the reference raise
-    NotImplementedError naming the ROADMAP item that brings them).
-    batch=V makes the fn accept a (V, K, J, C, 2) stack contracted in ONE
-    kernel launch with V*C*2 lanes.  lchunk selects the l-chunked
-    streaming kernel (chunks of lchunk degrees, each resumed from a
-    two-row recurrence window); precision: None / "fp32" (the plan
-    dtype) or "bf16" (bf16 windows and Wigner rows, plan-dtype state and
-    sums; always the streaming kernel, at lchunk=B unless given).
+    impl: "fused" | "onthefly" | "dense" | "ragged" (the module
+    docstring); "dense" and "ragged" need the plan's table (a plan built
+    streaming raises ValueError).  tk / tl: the reference's cluster and
+    degree tiles (they shape the ragged work list; each must divide its
+    axis).  batch=V makes the fn accept a (V, K, J, C, 2)
+    stack contracted in ONE kernel launch with V*C*2 lanes.  lchunk
+    selects the l-chunked streaming kernel (chunks of lchunk degrees,
+    each resumed from a two-row recurrence window); precision: None /
+    "fp32" (the plan dtype) or "bf16" (bf16 windows and Wigner rows,
+    plan-dtype state and sums; always the streaming kernel, at lchunk=B
+    unless given).  Both exist only for impl="fused".
     """
-    check_impl(impl, lchunk, precision)
-    return _kernel_fn(plan, "dwt", tk, lchunk, precision, batch)
+    return _kernel_fn(plan, "dwt", impl, tk, tl, lchunk, precision, batch)
 
 
 def make_idwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
-                 lchunk=None, precision=None, batch=None):
+                 tl: int = 128, lchunk=None, precision=None, batch=None):
     """Build an idwt_fn(plan, lhs) for core.batched.inverse_clustered;
-    see :func:`make_dwt_fn`."""
-    check_impl(impl, lchunk, precision)
-    return _kernel_fn(plan, "idwt", tk, lchunk, precision, batch)
+    see :func:`make_dwt_fn`.  impl="ragged" raises ValueError, as in the
+    reference: the ragged grid has no inverse kernel."""
+    return _kernel_fn(plan, "idwt", impl, tk, tl, lchunk, precision, batch)

@@ -12,7 +12,10 @@ directory ``kernels/_build/`` is not committed.  :func:`build_all`
 starts one ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module on hosts
-without ``nvcc`` or a card.
+without ``nvcc`` or a card.  Also here: the binding every wrapper launches
+through (:func:`launch`, :func:`suffix`, :func:`route`, :func:`ptr`,
+:func:`check_launch`) and the lane grouping of the plain versions
+(:func:`lane_groups`).
 """
 from __future__ import annotations
 
@@ -24,13 +27,17 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "library", "nvcc_path",
-           "check_launch"]
+import torch
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "LANES", "build_all", "library",
+           "nvcc_path", "launch", "suffix", "check_launch", "route", "ptr",
+           "lane_groups"]
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("dwt_fused", "streaming")   # one library per csrc/<name>.cu
+# one library per csrc/<name>.cu
+SOURCES = ("dwt_fused", "streaming", "dwt_dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -108,8 +115,56 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def launch(source: str, symbol: str, what: str, device, tensors, ints):
+    """Call the C launch function ``symbol`` of csrc/<source>.cu on the
+    current stream of ``device``.  Its arguments are the tensors' device
+    pointers (None: a null pointer), then the ints, then the stream; it
+    returns a cudaError_t, and a non-zero one raises."""
+    fn = getattr(library(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) \
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*(ptr(t) for t in tensors), *ints,
+                 torch.cuda.current_stream(device).cuda_stream)
+    check_launch(err, what)
+
+
+def suffix(dtype) -> str:
+    """The dtype part of a typed C entry point: f32 or f64."""
+    return "f32" if dtype == torch.float32 else "f64"
+
+
 def check_launch(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch function."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+def route(name, x):
+    """"plain" for a CPU tensor, "kernel" for a CUDA one; raise for any
+    other device."""
+    if x.device.type == "cpu":
+        return "plain"
+    if x.device.type == "cuda":
+        return "kernel"
+    raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
+def ptr(t) -> int | None:
+    """Device pointer of a tensor, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+# Lanes of one transform (C = 8 member slots x real/imag).  The plain
+# versions contract each 16-lane group on its own: a BLAS product orders
+# its sums by the operand shape, and a lane's result must not depend on
+# how many transforms share the launch.
+LANES = 16
+
+
+def lane_groups(x):
+    """The contiguous 16-lane groups of x's last axis."""
+    return [x[..., c:c + LANES].contiguous()
+            for c in range(0, x.shape[-1], LANES)]

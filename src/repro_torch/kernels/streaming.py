@@ -27,16 +27,14 @@ kernel launches per wrapper.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import runtime
 from .autotune import PRECISIONS
-from .dwt_fused import (_LANES, _march_inputs, check_march_inputs,
-                        check_operands, live_clusters, permute_rows, ptr,
-                        route, unpermute_rows)
-from .wigner_rec import recurrence_step
+from .dwt_fused import (_march_inputs, check_operands, live_clusters,
+                        permute_rows, unpermute_rows)
+from .runtime import lane_groups, route
+from .wigner_rec import check_march_inputs, recurrence_step
 
 __all__ = ["check_lchunk", "storage_dtype", "build_windows",
            "dwt_streaming", "idwt_streaming", "build_windows_plain",
@@ -139,8 +137,7 @@ def dwt_streaming_plain(seeds, m, mp, cos_beta, rhs, l0s, windows, *,
     tk = min(tk, K)
     out = torch.zeros((K, B, rhs.shape[-1]), dtype=seeds.dtype,
                       device=seeds.device)
-    groups = [rhs[:, :, c:c + _LANES].contiguous()
-              for c in range(0, rhs.shape[-1], _LANES)]
+    groups = lane_groups(rhs)
     for l, row in _chunks(seeds, m, mp, cos_beta, l0s, windows, B=B, tk=tk,
                           lchunk=lchunk, precision=precision):
         out[:, l, :] = torch.cat([torch.einsum("kj,kjc->kc", row, grp)
@@ -168,11 +165,9 @@ def idwt_streaming_plain(seeds, m, mp, cos_beta, lhs, l0s, windows, *,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _symbol(name: str, dtype: torch.dtype, precision: str):
+def _symbol(name: str, dtype: torch.dtype, precision: str) -> str:
     """Typed C entry of csrc/streaming.cu, e.g. dwt_streaming_f64_bf16."""
-    lib = runtime.library("streaming")
-    return getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}"
-                        f"_{precision}")
+    return f"{name}_{runtime.suffix(dtype)}_{precision}"
 
 
 def _check_windows(name, windows, seeds, *, B, lchunk, precision):
@@ -203,36 +198,21 @@ def build_windows(seeds, m, mp, cos_beta, *, L: int, lchunk: int,
     win = torch.empty((nL, 2, K, J), dtype=storage_dtype(seeds.dtype,
                                                         precision),
                       device=seeds.device)
-    fn = _symbol("build_windows", seeds.dtype, precision)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(seeds.device):
-        stream = torch.cuda.current_stream(seeds.device).cuda_stream
-        err = fn(seeds.data_ptr(), m.data_ptr(), mp.data_ptr(),
-                 cos_beta.data_ptr(), win.data_ptr(), K, J, nL, lchunk,
-                 stream)
-    runtime.check_launch(err, "build_windows")
+    runtime.launch("streaming", _symbol("build_windows", seeds.dtype,
+                                        precision),
+                   "build_windows", seeds.device,
+                   [seeds, m, mp, cos_beta, win], [K, J, nL, lchunk])
     LAUNCHES["build_windows"] += 1
     return win
-
-
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _launch(name, seeds, m, mp, cos_beta, x, l0s, perm, windows, y, *, L,
             tk, lchunk, precision):
     K, J = seeds.shape
-    fn = _symbol(name, seeds.dtype, precision)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(seeds.device):
-        stream = torch.cuda.current_stream(seeds.device).cuda_stream
-        err = fn(seeds.data_ptr(), m.data_ptr(), mp.data_ptr(),
-                 cos_beta.data_ptr(), x.data_ptr(), l0s.data_ptr(),
-                 ptr(perm), windows.data_ptr(), y.data_ptr(), K, J, L,
-                 x.shape[-1], tk, lchunk, stream)
-    runtime.check_launch(err, name)
+    runtime.launch("streaming", _symbol(name, seeds.dtype, precision), name,
+                   seeds.device,
+                   [seeds, m, mp, cos_beta, x, l0s, perm, windows, y],
+                   [K, J, L, x.shape[-1], tk, lchunk])
     LAUNCHES[name] += 1
     return y
 

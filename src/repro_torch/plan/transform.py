@@ -1,14 +1,17 @@
 """Planner/executor layer of the port: ``plan(B)`` resolves a schedule,
 builds the plan's tables on the device once, and returns a memoized
 :class:`Transform` whose executors run the clustered FSOFT / iFSOFT
-through the fused CUDA kernels.
+through the CUDA kernels.
 
     from repro_torch import plan
-    t = plan(B)                            # on the card
+    t = plan(B)                            # on the card, fused kernels
     fhat = t.forward(f)                    # single transform
     grids = t.inverse_batch(fhats)         # V-lane packed launches
     t16 = plan(B, lchunk=16)               # l-chunked streaming kernels
     tb = plan(B, torch.float32, precision="bf16")   # bf16 rows / windows
+    to = plan(B, impl="onthefly")          # every degree, no ragged skip
+    td = plan(B, impl="dense")             # resident (K, L, J) table
+    tr = plan(B, impl="ragged", tl=16)     # table, work-list forward
 
 The port of ``repro.plan.transform`` for one device.  Options of the
 reference that this port does not run yet raise NotImplementedError
@@ -25,14 +28,18 @@ import torch
 from repro_torch import obs
 from repro_torch.core import batched
 from repro_torch.core.batched import SoftPlan, resolve_device
-from repro_torch.kernels import autotune, dwt_fused, ops
+from repro_torch.kernels import autotune, dwt_fused, ops, wigner_rec
+from repro_torch.kernels import dwt as dwt_kernels
 from repro_torch.kernels import streaming as streaming_kernels
 
 __all__ = ["Transform", "Schedule", "plan", "clear_cache", "cache_stats",
            "dense_table_bytes_limit", "IMPLS"]
 
 # impl="auto" resolves to "fused"; "reference" is the plain einsum oracle
-IMPLS = ("reference", "fused")
+IMPLS = ("reference", "dense", "ragged", "onthefly", "fused")
+
+# the schedules that read the plan's dense (K, L, J) Wigner table
+_TABLE_IMPLS = ("reference", "dense", "ragged")
 
 # cluster tile of the l0 schedule; plans pad K to a multiple of it
 _DEF_TK = 8
@@ -55,15 +62,18 @@ class Schedule:
 
     ``source``: "explicit" (the caller fixed V) or "static" (the
     :data:`repro_torch.kernels.autotune.V_RULE` lane-width rule).
-    ``smem_bytes``: dynamic shared memory of the larger of the two
-    kernels' blocks (0 for the reference einsum).  ``lchunk``: None for
-    the monolithic fused kernels, else the l-chunk of the streaming
-    kernels; ``precision``: "fp32" (the plan dtype) or "bf16".
+    ``smem_bytes``: shared memory of the largest block the schedule's
+    kernels launch (0 for the reference einsum).  ``tl``: the degree tile
+    of the ragged work list (B for every other schedule, which has none
+    to set).  ``lchunk``: None for the monolithic fused
+    kernels, else the l-chunk of the streaming kernels; ``precision``:
+    "fp32" (the plan dtype) or "bf16".
     """
 
-    impl: str               # "fused" | "reference"
+    impl: str               # one of IMPLS
     V: int                  # lane width of the batch executors
     tk: int                 # cluster tile of the l0 schedule
+    tl: int
     source: str
     smem_bytes: int
     batch_bytes: int        # device bytes of one V-lane batch call
@@ -71,45 +81,68 @@ class Schedule:
     precision: str = "fp32"
     window_bytes: int = 0   # the streaming kernels' window stack
 
+    @property
+    def inverse_impl(self) -> str:
+        """iDWT twin: the ragged grid has no inverse kernel; its plans
+        run the inverse on the dense grid with the same tiles."""
+        return "dense" if self.impl == "ragged" else self.impl
 
-def _static_schedule(soft_plan: SoftPlan, impl: str, V, lchunk,
+
+def _padded_clusters(B: int) -> int:
+    """K of a plan: the B (B + 1) / 2 clusters padded to the tile."""
+    return -(-(B * (B + 1) // 2) // _DEF_TK) * _DEF_TK
+
+
+def _check_device_memory(B: int, itemsize: int, device, *, table: bool,
+                         lchunk, precision: str) -> None:
+    """Refuse a plan whose V = 1 transform does not fit the device (the
+    dense table included), before anything is built."""
+    need = autotune.estimate_batch_bytes(
+        B, _padded_clusters(B), 1, itemsize, lchunk=lchunk,
+        precision=precision, table=table)
+    have = autotune.device_memory_bytes(device)
+    if need > have:
+        raise ValueError(
+            f"one B={B} transform needs ~{need} bytes of {device} memory "
+            f"(autotune.estimate_batch_bytes at V=1"
+            f"{', with the dense table' if table else ''}), over its {have}")
+
+
+def _static_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
                      precision: str) -> Schedule:
-    """The l-chunk (:func:`repro_torch.kernels.autotune.static_lchunk`:
-    an explicit lchunk is honoured, bf16 always streams, fp32 streams
-    only when asked to), the kernels' block against Hopper's per-block
-    budget, one V=1 transform's buffers against the device's memory, and
-    the widest lane width whose batch buffers fit (V="auto").
+    """The kernels' block against Hopper's per-block budget and the
+    widest lane width whose batch buffers -- with the plan's dense table,
+    when it has one -- fit (V="auto").  ``lchunk`` is resolved by the
+    caller (:func:`repro_torch.kernels.autotune.static_lchunk`: an
+    explicit lchunk is honoured, bf16 always streams, fp32 streams only
+    when asked to).
     """
     K, B = soft_plan.n_padded, soft_plan.B
     itemsize = torch.empty((), dtype=soft_plan.dtype).element_size()
     impl = "fused" if impl == "auto" else impl
-    if soft_plan.streaming and impl == "reference":
+    if soft_plan.streaming and impl in _TABLE_IMPLS:
         raise ValueError(
-            f"impl='reference' needs the dense Wigner table, but this "
-            f"B={B} plan was built streaming (d=None); use impl='fused' or "
-            f"plan with streaming=False")
-    smem = 0
-    if impl == "fused":
-        auto = autotune.static_lchunk(B=B, itemsize=itemsize,
-                                      precision=precision)
-        lchunk = auto if lchunk is None else lchunk
-        smem = max(autotune.estimate_smem_bytes(2 * B, itemsize, inverse=inv)
-                   for inv in (False, True))
-    mem = dict(lchunk=lchunk, precision=precision)
-    need = autotune.estimate_batch_bytes(B, K, 1, itemsize, **mem)
-    have = autotune.device_memory_bytes(soft_plan.device)
-    if need > have:
-        raise ValueError(
-            f"one B={B} transform needs ~{need} bytes of {soft_plan.device} "
-            f"memory (autotune.estimate_batch_bytes at V=1), over its "
-            f"{have}")
+            f"impl={impl!r} needs the dense Wigner table, but this "
+            f"B={B} plan was built streaming (d=None); use the recurrence "
+            f"family (impl='fused'/'onthefly') or plan with "
+            f"streaming=False")
+    mem = dict(lchunk=lchunk, precision=precision,
+               table=not soft_plan.streaming)
     if V == "auto":
         V = autotune.static_lane_width(B, K, itemsize, soft_plan.device,
                                        **mem)
         source = "static"
     else:
         source = "explicit"
-    return Schedule(impl, V, _DEF_TK, source, smem,
+    smem = 0
+    if impl in ("fused", "onthefly"):
+        smem = max(autotune.estimate_smem_bytes(2 * B, itemsize, inverse=inv)
+                   for inv in (False, True))
+    elif impl in ("dense", "ragged"):
+        spans = (tl if impl == "ragged" else B, 2 * B)
+        smem = max(autotune.dense_smem_bytes(sp, V * 16, itemsize)
+                   for sp in spans)
+    return Schedule(impl, V, _DEF_TK, tl, source, smem,
                     autotune.estimate_batch_bytes(B, K, V, itemsize, **mem),
                     lchunk, precision,
                     autotune.window_bytes(B, K, lchunk, precision, itemsize))
@@ -124,8 +157,8 @@ class Transform:
       forward / inverse              single transform, dense coefficient
                                      layout in/out
       forward_batch / inverse_batch  any request count, chunked onto the
-                                     V-lane fused launches (partial chunks
-                                     zero-padded)
+                                     V-lane kernel launches (partial
+                                     chunks zero-padded)
 
     Inputs may be numpy arrays or tensors; they are moved to the plan's
     device.  Results are tensors on that device.  ``stats`` counts
@@ -159,13 +192,15 @@ class Transform:
     def describe(self) -> dict:
         """One flat dict for logs / benchmark rows.
 
-        ``smem_bytes`` is the kernels' shared memory per block,
+        ``smem_bytes`` is the kernels' shared memory per block, ``tl`` the
+        ragged work list's degree tile and ``inverse_impl`` the schedule
+        the inverse runs (ragged plans invert on the dense kernel),
         ``batch_bytes`` / ``v_rule`` how V was chosen, ``lchunk`` /
         ``precision`` / ``window_bytes`` the streaming schedule (lchunk
         None: the monolithic fused kernels), and ``kernel_launches`` the
         process-wide launch counts of the CUDA kernels
-        (:data:`repro_torch.kernels.dwt_fused.LAUNCHES` and
-        :data:`repro_torch.kernels.streaming.LAUNCHES`; zero on the CPU,
+        (the ``LAUNCHES`` of :mod:`repro_torch.kernels.dwt_fused`,
+        ``.streaming``, ``.wigner_rec`` and ``.dwt``; zero on the CPU,
         where the plain versions run).  ``precision_bound_extrapolated``
         flags a bf16 schedule whose error bound is not a measurement."""
         s = self.schedule
@@ -174,7 +209,8 @@ class Transform:
         return {
             "B": self.B, "dtype": str(self.dtype).replace("torch.", ""),
             "device": str(self.device),
-            "impl": s.impl, "V": s.V, "tk": s.tk, "source": s.source,
+            "impl": s.impl, "inverse_impl": s.inverse_impl, "V": s.V,
+            "tk": s.tk, "tl": s.tl, "source": s.source,
             "v_rule": autotune.V_RULE, "batch_bytes": s.batch_bytes,
             "streaming": sp.streaming,
             "lchunk": s.lchunk, "precision": s.precision,
@@ -184,7 +220,10 @@ class Transform:
             "smem_bytes": s.smem_bytes,
             "smem_limit": autotune.SMEM_LIMIT_BYTES,
             "n_clusters": sp.n_clusters, "n_padded": sp.n_padded,
-            "kernel_launches": {**dwt_fused.LAUNCHES, **streaming_kernels.LAUNCHES},
+            "kernel_launches": {**dwt_fused.LAUNCHES,
+                                **streaming_kernels.LAUNCHES,
+                                **wigner_rec.LAUNCHES,
+                                **dwt_kernels.LAUNCHES},
             "obs": {
                 "counters": {k: v for k, v in rec.counters().items()
                              if k.startswith("plan.")},
@@ -199,32 +238,34 @@ class Transform:
             self._resources[name] = build()
         return self._resources[name]
 
-    def _make(self, maker, batch):
+    def _make(self, maker, impl, batch):
         if self.schedule.impl == "reference":
             return None
         s = self.schedule
-        return maker(self.soft_plan, "fused", tk=s.tk, lchunk=s.lchunk,
-                     precision=s.precision, batch=batch)
+        return maker(self.soft_plan, impl, tk=s.tk, tl=s.tl,
+                     lchunk=s.lchunk, precision=s.precision, batch=batch)
 
     @property
     def dwt_fn(self):
         """Single-transform (plan, rhs) DWT closure; None = einsum oracle."""
-        return self._res("dwt_1", lambda: self._make(ops.make_dwt_fn, None))
+        return self._res("dwt_1", lambda: self._make(
+            ops.make_dwt_fn, self.schedule.impl, None))
 
     @property
     def idwt_fn(self):
-        return self._res("idwt_1", lambda: self._make(ops.make_idwt_fn, None))
+        return self._res("idwt_1", lambda: self._make(
+            ops.make_idwt_fn, self.schedule.inverse_impl, None))
 
     @property
     def dwt_fn_batch(self):
         """V-lane batch DWT closure ((V, K, J, C, 2) rhs, one launch)."""
-        return self._res("dwt_V", lambda: self._make(ops.make_dwt_fn,
-                                                     self.schedule.V))
+        return self._res("dwt_V", lambda: self._make(
+            ops.make_dwt_fn, self.schedule.impl, self.schedule.V))
 
     @property
     def idwt_fn_batch(self):
-        return self._res("idwt_V", lambda: self._make(ops.make_idwt_fn,
-                                                      self.schedule.V))
+        return self._res("idwt_V", lambda: self._make(
+            ops.make_idwt_fn, self.schedule.inverse_impl, self.schedule.V))
 
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(self.cdtype)
@@ -315,10 +356,15 @@ _CACHE_STATS = {"hits": 0, "misses": 0}
 
 
 def clear_cache() -> None:
-    """Drop memoized Transforms (testing / benchmarking hook)."""
+    """Drop memoized Transforms and built plans (testing / benchmarking
+    hook).  The per-plan memos of :mod:`repro_torch.kernels.ops` and
+    :mod:`repro_torch.core.batched` are weak: what a plan alone held --
+    its dense table, seeds, windows, work lists -- is freed with the last
+    Transform or plan the caller still holds."""
     _CACHE.clear()
     for k in _CACHE_STATS:
         _CACHE_STATS[k] = 0
+    batched.clear_plan_cache()
 
 
 def cache_stats() -> dict:
@@ -340,35 +386,50 @@ def dense_table_bytes_limit() -> int:
 
 
 def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
-         streaming: bool | None = None, device=None,
+         tl: int | None = None, streaming: bool | None = None, device=None,
          lchunk: int | None = None, precision: str | None = None,
          mesh=None, tune: str | None = None) -> Transform:
     """Plan one SO(3) FFT configuration; returns a memoized Transform.
 
     dtype: torch.float64 (default) or torch.float32.
-    impl: "auto" (= "fused": the CUDA kernels) or "reference" (the plain
-          einsum oracle on a dense Wigner table).
+    impl: "auto" (= "fused"), or one of :data:`IMPLS`: "fused" (the
+          ragged on-the-fly CUDA kernels), "onthefly" (the same
+          recurrence over every degree of every cluster, no skip),
+          "dense" (a tiled contraction against the plan's resident
+          (K, L, J) Wigner table), "ragged" (the dense forward on the
+          host work list of (cluster-tile, l-tile) blocks; its inverse
+          runs on "dense") or "reference" (the plain einsum oracle on the
+          table).
     V:    "auto" (:data:`repro_torch.kernels.autotune.V_RULE`) or an
           explicit lane width for the batch executors.
+    tl:   the degree tile of the "ragged" work list (default B; it must
+          divide B, as in the reference, whatever the impl).  The other
+          schedules have no tile to set: they ignore it.
     streaming: build the plan WITHOUT the dense (K, L, J) Wigner table.
-          None -- the default -- engages it for fused plans whose dense
-          table's host footprint would exceed
-          $REPRO_PLAN_DENSE_TABLE_BYTES (512 MiB: B <= 64 builds dense,
-          B >= 128 streams), as the reference does.
+          None -- the default -- engages it for recurrence-family plans
+          ("auto", "fused", "onthefly") whose dense table's host
+          footprint would exceed $REPRO_PLAN_DENSE_TABLE_BYTES (512 MiB:
+          B <= 64 builds dense, B >= 128 streams), as the reference
+          does; the table schedules always build the table.
+          streaming=True with one of them raises ValueError.
     device: None means the card (raises if there is none); pass "cpu" to
           run the kernels' plain versions on the CPU.
     lchunk: run the l-chunked streaming kernels with chunks of lchunk
-          degrees (must divide B).  None: the monolithic fused kernels
-          under fp32, one chunk of B under bf16
+          degrees (must divide B; fused only).  None: the monolithic
+          fused kernels under fp32, one chunk of B under bf16
           (:func:`repro_torch.kernels.autotune.static_lchunk`).  A block
           fits the card's per-block budget at every B <= 512; past it the
           plan raises ValueError, whatever the l-chunk.
     precision: None / "fp32" (the plan dtype throughout), "bf16" (bf16
           window storage and Wigner rows, plan-dtype recurrence and sums;
-          always streaming), or "auto" (bf16 only for float32 plans at
-          B >= 128; see :func:`repro_torch.kernels.autotune.
-          static_precision`).  None never downgrades.
+          always streaming; fused only), or "auto" (bf16 only for
+          float32 plans at B >= 128; see
+          :func:`repro_torch.kernels.autotune.static_precision`).  None
+          never downgrades.
 
+    A plan whose V = 1 transform does not fit the device's memory
+    (:func:`repro_torch.kernels.autotune.estimate_batch_bytes`, the dense
+    table included) raises ValueError before anything is built.
     Identical configurations return the SAME Transform object.
     """
     if mesh is not None:
@@ -393,15 +454,22 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
         lchunk = streaming_kernels.check_lchunk(B, lchunk)
     if V != "auto" and (not isinstance(V, int) or V < 1):
         raise ValueError(f"V must be 'auto' or a positive int, got {V!r}")
+    _, tl, _ = dwt_kernels.check_tiles(_padded_clusters(B), B, 2 * B,
+                                       _DEF_TK, B if tl is None else tl,
+                                       2 * B)
+    if impl != "ragged":
+        tl = B
     device = resolve_device(device)
     itemsize = torch.empty((), dtype=dtype).element_size()
     if streaming is None:
-        streaming = impl != "reference" and autotune.dense_table_host_bytes(
-            B, itemsize) > dense_table_bytes_limit()
-    elif streaming and impl == "reference":
-        raise ValueError("streaming=True needs impl='fused' (the reference "
-                         "einsum reads the dense Wigner table)")
-    key = (B, dtype, impl, V, bool(streaming), str(device), lchunk,
+        streaming = impl not in _TABLE_IMPLS and \
+            autotune.dense_table_host_bytes(B, itemsize) > \
+            dense_table_bytes_limit()
+    elif streaming and impl in _TABLE_IMPLS:
+        raise ValueError(f"streaming=True needs a recurrence-family plan "
+                         f"(impl 'auto'/'fused'/'onthefly'); impl={impl!r} "
+                         f"reads the dense Wigner table")
+    key = (B, dtype, impl, V, tl, bool(streaming), str(device), lchunk,
            precision)
     hit = _CACHE.get(key)
     if hit is not None:
@@ -411,13 +479,20 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
         return hit
     _CACHE_STATS["misses"] += 1
     obs.inc("plan.cache.miss")
+    if impl in ("auto", "fused", "onthefly"):
+        # raises where no recurrence block fits; onthefly never streams
+        auto = autotune.static_lchunk(B=B, itemsize=itemsize,
+                                      precision=precision)
+        lchunk = auto if lchunk is None else lchunk
+    _check_device_memory(B, itemsize, device, table=not streaming,
+                         lchunk=lchunk, precision=precision)
     with obs.span("plan.build", B=B, impl=impl, streaming=bool(streaming),
                   device=str(device)):
         soft_plan = batched.build_plan(
             B, dtype=dtype, pad_to=_DEF_TK, streaming=bool(streaming),
             device=device)
         with obs.span("plan.schedule", B=B, impl=impl):
-            schedule = _static_schedule(soft_plan, impl, V, lchunk,
+            schedule = _static_schedule(soft_plan, impl, V, tl, lchunk,
                                         precision)
         t = Transform(soft_plan=soft_plan, schedule=schedule)
     _CACHE[key] = t

@@ -188,14 +188,28 @@ def test_lane_packing_roundtrip():
         tops.pad_lanes(x, 2)
 
 
-@pytest.mark.parametrize("kwargs", [dict(impl="dense"), dict(impl="ragged"),
-                                    dict(impl="onthefly")])
-def test_unported_schedules_raise(kwargs):
+@pytest.mark.parametrize("impl", ["dense", "ragged", "onthefly"])
+def test_other_schedules_match_fused(impl):
+    """make_dwt_fn / make_idwt_fn of the schedules ported after the fused
+    one give the fused fns' results: bit for bit for onthefly, within
+    the reference's f64 tolerance for the table schedules (ragged runs
+    its inverse on dense, and has no inverse fn of its own)."""
     tp = tb.build_plan(8, pad_to=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tops.make_dwt_fn(tp, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tops.make_idwt_fn(tp, **kwargs)
+    rng = np.random.default_rng(5)
+    for direction, A in (("dwt", 16), ("idwt", 8)):
+        x = torch.as_tensor(rng.normal(size=(tp.n_padded, A, 8, 2)))
+        maker = getattr(tops, f"make_{direction}_fn")
+        want = maker(tp)(tp, x)
+        if impl == "ragged" and direction == "idwt":
+            with pytest.raises(ValueError, match="no inverse kernel"):
+                maker(tp, impl, tl=4)
+            continue
+        got = maker(tp, impl, tl=4)(tp, x)
+        if impl == "onthefly":
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       rtol=1e-10, atol=1e-11)
 
 
 @pytest.mark.parametrize("kwargs", [dict(lchunk=4), dict(precision="bf16")])

@@ -468,9 +468,10 @@ def test_plan_keys_and_describe_streaming_fields():
     assert d["window_bytes"] == 4 * 2 * a.soft_plan.n_padded * 16 * 8
     assert d["batch_bytes"] == a.describe()["batch_bytes"] + d["window_bytes"]
     assert not d["precision_bound_extrapolated"]
-    assert set(d["kernel_launches"]) == {"dwt_fused", "idwt_fused",
-                                         "build_windows", "dwt_streaming",
-                                         "idwt_streaming"}
+    assert set(d["kernel_launches"]) == {
+        "dwt_fused", "idwt_fused", "build_windows", "dwt_streaming",
+        "idwt_streaming", "dwt_onthefly", "idwt_onthefly", "dwt_dense",
+        "idwt_dense", "dwt_ragged"}
 
 
 @pytest.mark.parametrize("kwargs, msg", [

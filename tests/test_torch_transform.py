@@ -146,9 +146,10 @@ def test_schedule_and_describe():
     assert d["V"] == 8 and d["source"] == "static"   # tiny B: widest V fits
     assert d["streaming"] is False
     assert 0 < d["smem_bytes"] <= d["smem_limit"] == 232448
-    assert set(d["kernel_launches"]) == {"dwt_fused", "idwt_fused",
-                                         "build_windows", "dwt_streaming",
-                                         "idwt_streaming"}
+    assert set(d["kernel_launches"]) == {
+        "dwt_fused", "idwt_fused", "build_windows", "dwt_streaming",
+        "idwt_streaming", "dwt_onthefly", "idwt_onthefly", "dwt_dense",
+        "idwt_dense", "dwt_ragged"}
     assert d["lchunk"] is None and d["precision"] == "fp32"
     assert d["window_bytes"] == 0
     assert "vmem_bytes" not in d and "vmem_limit" not in d
@@ -170,12 +171,24 @@ def test_executor_spans_recorded():
     assert [e["args"]["lanes"] for e in chunks] == [2, 1]
 
 
-@pytest.mark.parametrize("kwargs", [dict(impl="dense"), dict(impl="ragged"),
-                                    dict(impl="onthefly"),
-                                    dict(tune="measure"), dict(mesh=object())])
+@pytest.mark.parametrize("kwargs", [dict(tune="measure"),
+                                    dict(mesh=object())])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tplan(8, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("impl", ["dense", "ragged", "onthefly"])
+def test_other_schedules_plan_and_run(impl):
+    """The schedules besides fused plan, run, and round-trip at the
+    reference's f64 tolerance."""
+    t = tplan(8, device="cpu", impl=impl, tl=4)
+    assert t.schedule.impl == impl
+    assert t.schedule.inverse_impl == ("dense" if impl == "ragged" else impl)
+    assert t.soft_plan.streaming is False
+    fhat = tsoft.random_coeffs(8, 3)
+    back = t.forward(t.inverse(fhat)).numpy()
+    np.testing.assert_allclose(back, fhat, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("kwargs", [dict(lchunk=4), dict(precision="bf16")])
