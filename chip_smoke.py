@@ -49,13 +49,33 @@ Phases (any failure exits non-zero):
   6. repro_torch.plan(512) f64 V = 1: one inverse -> forward roundtrip,
      its peak device memory against autotune.estimate_batch_bytes (and
      phase 4's pair at B = 128 V = 8), then the fused kernels alone at
-     B = 512's full shape.
-The line before the last is one JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.  Long logs go to chiprun_out/.
+     B = 512's full shape;
+  7a. (every SO(3) plan freed first) the folded causal attention kernel,
+     both schedules, against its plain version within ATTN_TOL and folded
+     == naive bit for bit: the serving shape (B = 8, Hq = 9, Hkv = 3,
+     S = 2048, D = 64, bf16, bq = 128) timed beside its plain version,
+     scaled_dot_product_attention and its bound; f32 at B = 2, S = 512;
+     D = 36 and 128; the reference's edge shapes (S 64 / 128, bq
+     16 / 32 / 64, Hq / Hkv 4/4, 4/2, 4/1); at every shape ATTN_TOL must
+     reject faults planted in the plain version (p not rounded before
+     P V, scores in TF32, the diagonal kv block dropped);
+  7b. the serve path: smollm-135m at its published config (bf16, random
+     weights, torch.Generator seed 0) through repro_torch.launch.serve
+     .generate, batch 8, prompt 2048, 32 greedy tokens: one attention
+     launch per layer of the prefill, prefill and decode times, peak
+     memory, the prefill logits against the plain-attention model within
+     LOGIT_TOL with the same greedy tokens, and a planted fault (the
+     diagonal kv block dropped in every layer) outside it (also for a
+     40-token, padded prompt), and a torch.profiler breakdown of one
+     prefill and one decode step.
+The line before the last is one JSON object {"kernels": [...]} (eleven
+kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
+the output directory OUT.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
 import re
@@ -68,9 +88,10 @@ SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f64 on the
-# tensor cores and f32 outside them, FLOP/s.
+# tensor cores, f32 outside them and bf16 on the tensor cores (dense),
+# FLOP/s.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 
 DEV = "cuda"
 
@@ -111,6 +132,9 @@ KERNELS = {
                    "source": "src/repro_torch/kernels/csrc/dwt_dense.cu"},
     "dwt_ragged": {"replaces": "src/repro/kernels/dwt.py:175",
                    "source": "src/repro_torch/kernels/csrc/dwt_dense.cu"},
+    "folded_causal_attention": {
+        "replaces": "src/repro/kernels/folded_attention.py:173",
+        "source": "src/repro_torch/kernels/csrc/folded_attention.cu"},
 }
 
 
@@ -175,7 +199,8 @@ def ptxas_summary(name: str, text: str) -> list[str]:
         if hit and cur:
             short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
                               r"dwt_stream_inv|build_windows_kernel|"
-                              r"onthefly_fwd|onthefly_inv|dense_kernel)"
+                              r"onthefly_fwd|onthefly_inv|dense_kernel|"
+                              r"folded_attention_kernel)"
                               r"I(.*?)EEv", cur)
             label = f"{short.group(1)}<{short.group(2)[:40]}>" if short \
                 else cur[:60]
@@ -721,8 +746,9 @@ def onthefly_case(c: TableCase, *, time_it: bool, equal_fused: bool):
 
 def _launch_modules():
     from repro_torch.kernels import dwt as dk, dwt_fused as dfk
+    from repro_torch.kernels import folded_attention as fa
     from repro_torch.kernels import streaming as stk, wigner_rec as wr
-    return dfk, stk, wr, dk
+    return dfk, stk, wr, dk, fa
 
 
 def reset_all_launches():
@@ -1138,6 +1164,398 @@ def big_roundtrip(B: int, mem128: dict) -> dict:
             "kernels_full_shape": full}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: folded causal attention and the smollm-135m serve path
+# ---------------------------------------------------------------------------
+
+# Kernel against plain, two limits per dtype, each set between the sound
+# readings and the planted faults of ATTN_FAULTS (H100, every phase-7a
+# shape): "elem", the tol of |k - p| <= tol + tol |p| (the reference's
+# form), and "l2", ||k - p||_2 / ||p||_2.  f32: both sum the same f32
+# products in another order (no TF32 on either side); sound elem <= 1.8e-7
+# and l2 <= 1.6e-7, TF32 scores >= 1.0e-4 / 5.8e-5.  bf16: the f32 results
+# differ as in f32 and a few round to the neighbouring bf16 value (1e-4 of
+# the outputs); elem 2**-7 passes any one-ulp difference and rejects more,
+# sound l2 <= 1.5e-5; an unrounded p moves 42 % of the outputs by an ulp
+# (elem 3.8e-3, under the limit; l2 >= 2.0e-3, over it).  Dropping the
+# diagonal block reads elem >= 0.19, l2 >= 0.23.  Phase 7a fails unless
+# every planted fault is rejected.
+ATTN_TOL = {"float32": {"elem": 1e-6, "l2": 1e-6},
+            "bfloat16": {"elem": 2.0 ** -7, "l2": 2e-4}}
+# Prefill logits of smollm-135m (bf16, random weights) with the kernel
+# against the same model with the plain attention, fixed before the first
+# card run: max|k - p| / max|p|.  Only the attention differs, by a bf16 ulp
+# in 1e-4 of its outputs; that moves through 30 bf16 residual layers.  The
+# card reads 1.5e-2 (prompt 2048) and 1.3e-2 (prompt 40); the diagonal
+# block dropped in every layer reads 0.37 to 0.40, and phase 7b fails
+# unless that planted fault is rejected.  The greedy tokens of the two
+# models must agree everywhere.
+LOGIT_TOL = 5e-2
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "smollm-135m", 8, 2048, 32
+
+
+def attention_bound(q, k, dname):
+    """(bound_ms, bound_by) of one attention call: q, k, v read once and
+    the output written once, against the products the causal function
+    needs (the S(S+1)/2 (query, key) pairs of the triangle, 4 D operations
+    each for q k^T and P V, per (batch, head)) at the dtype's dense tensor
+    rate (989 TFLOP/s bf16) or the f32 rate outside the tensor cores
+    (67 TFLOP/s)."""
+    B, Hq, S, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ops = B * Hq * 4 * D * S * (S + 1) // 2
+    return _bound(nbytes, ops, dname)
+
+
+def plain_attention(q, k, v, *, bq, bk):
+    """The kernel's plain version as an ``attn_fn`` of LM.prefill."""
+    from repro_torch.kernels import folded_attention as fa
+    return fa.folded_causal_attention_plain(
+        q, k, v, bq=bq, scale=float(1.0 / q.shape[-1] ** 0.5))
+
+
+def tf32(x):
+    """f32 x rounded to TF32 (10 mantissa bits, to nearest)."""
+    import torch
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def planted_attention(q, k, v, *, bq, bk, fault):
+    """The plain version with one fault planted, as an ``attn_fn``:
+    "p_unrounded" (P V from the f32 p, no rounding to v's dtype; the plain
+    version on f32 copies of q, k, v), "tf32_scores" (q K^T on q, k rounded
+    to TF32, as TF32 tensor cores form it) or "diagonal_dropped" (q-blocks
+    after the first skip their diagonal kv block; a dense masked softmax
+    in f32)."""
+    import torch
+    if fault == "p_unrounded":
+        return plain_attention(q.float(), k.float(), v.float(), bq=bq,
+                               bk=bk).to(q.dtype)
+    if fault == "tf32_scores":
+        return plain_attention(tf32(q.float()), tf32(k.float()), v.float(),
+                               bq=bq, bk=bk).to(q.dtype)
+    if fault != "diagonal_dropped":
+        raise ValueError(fault)
+    S, D = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    i = torch.arange(S, device=q.device)
+    keep = (i[None] < (i[:, None] // bq) * bq) \
+        | ((i[:, None] < bq) & (i[None] <= i[:, None]))
+    s = q.float() @ k.float().repeat_interleave(g, 1).transpose(-1, -2)
+    s = (s / D ** 0.5).masked_fill(~keep, float("-inf"))
+    return (torch.softmax(s, -1)
+            @ v.float().repeat_interleave(g, 1)).to(q.dtype)
+
+
+# the faults each dtype's limit must reject (p_unrounded is no fault in
+# f32, where p already has v's dtype; TF32 rounding leaves bf16 inputs
+# unchanged)
+ATTN_FAULTS = {"bfloat16": ("p_unrounded", "diagonal_dropped"),
+               "float32": ("tf32_scores", "diagonal_dropped")}
+
+
+def attention_readings(got, want) -> dict:
+    """|k - p| read three ways: its max; the smallest tol of the
+    reference's form |k - p| <= tol + tol |p| that passes; and
+    ||k - p||_2 / ||p||_2, with the share of elements that differ."""
+    err = (got.float() - want.float()).abs()
+    p = want.float()
+    return {"max_abs_err": float(err.max()),
+            "elem": float((err / (1 + p.abs())).max()),
+            "l2": float(err.norm() / p.norm()),
+            "differ": float((err > 0).float().mean())}
+
+
+def attention_case(B, Hq, Hkv, S, D, dtype, bq, *, seed, time_it=False):
+    """The kernel, both schedules, against its plain version on q, k, v
+    made as the model passes them: transposed views of (B, S, H, D)
+    tensors.  folded must equal naive (torch.equal)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import folded_attention as fa
+
+    dname = str(dtype).replace("torch.", "")
+    tag = f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {dname} bq={bq}"
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = ((torch.randn((B, S, H, D), generator=gen, device=DEV)
+                * s).to(dtype).transpose(1, 2)
+               for H, s in ((Hq, 0.5), (Hkv, 0.5), (Hkv, 1.0)))
+    runs = {sch: (lambda sch=sch: fa.folded_causal_attention(
+        q, k, v, bq=bq, bk=bq, schedule=sch)) for sch in ("folded", "naive")}
+    plain = lambda: plain_attention(q, k, v, bq=bq, bk=bq)  # noqa: E731
+    got, naive, want = runs["folded"](), runs["naive"](), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        fail(f"folded_causal_attention {tag}: non-finite output")
+    same = bool(torch.equal(got, naive))
+    tol = ATTN_TOL[dname]
+    rec = {**attention_readings(got, want),
+           "bitwise_vs_plain": bool(torch.equal(got, want)),
+           "folded_equals_naive": same, "B": B, "Hq": Hq, "Hkv": Hkv,
+           "S": S, "D": D, "dtype": dname, "bq": bq, "planted": {}}
+
+    def passes(r):
+        return r["elem"] <= tol["elem"] and r["l2"] <= tol["l2"]
+
+    log(f"  folded_causal_attention {tag}: max|k-p|={rec['max_abs_err']:.3e}"
+        f" elem {rec['elem']:.3e} (tol {tol['elem']:g}) l2 {rec['l2']:.3e} "
+        f"(tol {tol['l2']:g}) differ {rec['differ']:.2e}; folded == naive: "
+        f"{same}")
+    if not passes(rec):
+        fail(f"folded_causal_attention {tag}: kernel disagrees with its plain"
+             f" version (elem {rec['elem']:.3e}, l2 {rec['l2']:.3e})")
+    if not same:
+        fail(f"folded_causal_attention {tag}: folded != naive")
+    for fault in ATTN_FAULTS[dname]:
+        r = attention_readings(got, planted_attention(q, k, v, bq=bq, bk=bq,
+                                                      fault=fault))
+        rec["planted"][fault] = r
+        log(f"    planted {fault:16s}: elem {r['elem']:.3e} l2 {r['l2']:.3e}"
+            f" differ {r['differ']:.2e} (must break a limit)")
+        if passes(r):
+            fail(f"ATTN_TOL {tol} does not reject a planted {fault} at {tag}"
+                 f" (elem {r['elem']:.3e}, l2 {r['l2']:.3e})")
+    if time_it:
+        rec["ms"] = cuda_ms(runs["folded"], 10)
+        rec["naive_ms"] = cuda_ms(runs["naive"], 10)
+        rec["plain_ms"] = cuda_ms(plain, 1)
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10)
+        rec["bound_ms"], rec["bound_by"] = attention_bound(q, k, dname)
+        log(f"    folded {rec['ms']:.4f} ms  naive {rec['naive_ms']:.4f} ms"
+            f"  plain {rec['plain_ms']:.2f} ms  library(sdpa) "
+            f"{rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    del q, k, v, got, naive, want
+    return rec
+
+
+def attention_cases() -> dict:
+    """Phase 7a: the serving shape (timed), f32, D = 36 / 128, and the
+    edge shapes of tests/test_kernels.py:159-200."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("allow_tf32 is on: the plain version's f32 products would "
+             "round to TF32")
+    bf16, f32 = torch.bfloat16, torch.float32
+    recs = {"serve": attention_case(8, 9, 3, 2048, 64, bf16, 128, seed=70,
+                                    time_it=True),
+            "f32": attention_case(2, 4, 2, 512, 64, f32, 128, seed=71,
+                                  time_it=True)}
+    for i, (B, Hq, Hkv, S, D, dt, bq) in enumerate((
+            (2, 4, 2, 256, 36, bf16, 32), (2, 4, 2, 256, 36, f32, 32),
+            (2, 4, 1, 512, 128, bf16, 128), (2, 4, 1, 512, 128, f32, 64),
+            (1, 2, 2, 64, 64, bf16, 16), (1, 2, 2, 64, 64, f32, 16))):
+        recs[f"shape{i}"] = attention_case(B, Hq, Hkv, S, D, dt, bq,
+                                           seed=72 + i)
+    for S, bq in ((64, 16), (128, 32), (128, 64)):
+        for Hq, Hkv in ((4, 4), (4, 2), (4, 1)):
+            recs[f"edge_S{S}_bq{bq}_{Hq}_{Hkv}"] = attention_case(
+                2, Hq, Hkv, S, 32, f32, bq, seed=S + bq + Hkv)
+    torch.cuda.empty_cache()
+    return recs
+
+
+_SERVE_BUCKETS = (("attention kernel", ("folded_attention",)),
+                  ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+                  ("copy / cast / elementwise", ("elementwise", "copy",
+                                                 "Copy", "cast")),
+                  ("reduce / norm / softmax", ("reduce", "softmax",
+                                               "Reduce")))
+
+
+def serve_profile(model, prompts, max_len, path) -> dict:
+    """torch.profiler over one prefill and one decode step: device time
+    by bucket and the device's idle share of each window."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    out = {}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("")
+    _, states = model.prefill(prompts, max_len)
+    tok = torch.zeros((prompts.shape[0], 1), dtype=torch.long,
+                      device=prompts.device)
+    for what, fn in (("prefill", lambda: model.prefill(prompts, max_len)),
+                     ("decode_step", lambda: model.decode_step(
+                         tok, states, prompts.shape[1]))):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        with open(path, "a") as fh:
+            fh.write(f"== {what}\n")
+            fh.write(events.table(sort_by="self_cuda_time_total",
+                                  row_limit=40, max_name_column_width=90))
+        buckets = {name: 0.0 for name, _ in _SERVE_BUCKETS}
+        buckets["other"] = 0.0
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = e.self_device_time_total / 1e3
+            for name, keys in _SERVE_BUCKETS:
+                if any(key in e.key for key in keys):
+                    buckets[name] += ms
+                    break
+            else:
+                buckets["other"] += ms
+        busy = sum(buckets.values())
+        idle = max(0.0, 1 - busy / wall_ms)
+        log(f"  profiled {what}: wall {wall_ms:.2f} ms, device busy "
+            f"{busy:.2f} ms, idle share {idle:.3f}")
+        for name, ms in sorted(buckets.items(), key=lambda kv: -kv[1]):
+            log(f"    {name:28s} {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}")
+        out[what] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                     "idle_share": idle, "buckets_ms": buckets}
+    return out
+
+
+def attention_record(name, meta, attn, serve) -> dict:
+    """The {"kernels": ...} entry of the attention kernel: times and
+    error at the serving shape, launches from phase 7b's generate."""
+    rec = attn["serve"]
+    return {
+        "name": name, "route": "cuda", "source": meta["source"],
+        "replaces": meta["replaces"],
+        "launches": serve["launches_per_prefill"],
+        "max_abs_err": rec["max_abs_err"], "elem_err": rec["elem"],
+        "l2_err": rec["l2"],
+        "ms": rec["ms"], "kernel_ms": rec["ms"], "naive_ms": rec["naive_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)",
+        "at": {k: rec[k] for k in ("B", "Hq", "Hkv", "S", "D", "dtype",
+                                   "bq")},
+        "more": {"f32_B2_S512": {k: attn["f32"][k] for k in (
+            "max_abs_err", "elem", "l2", "ms", "naive_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "dtype", "S")}},
+    }
+
+
+def serve_path() -> dict:
+    """Phase 7b: smollm-135m at its published config (bf16, random
+    weights from torch.Generator seed 0) through repro_torch.launch.serve
+    .generate: batch 8, prompt 2048, 32 greedy tokens; the launch counts
+    are zeroed just before and read just after.  Then the prefill logits
+    against the plain-attention model, a 40-token prompt (the padded
+    prefill) the same way, times and peak memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get(SERVE_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    model = lm.init(cfg, gen)
+    B, S, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    prompts = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEV)
+    torch.cuda.synchronize()
+    log(f"  {SERVE_ARCH}: {lm.count_params(cfg)} parameters "
+        f"({cfg.param_dtype}), built in {time.perf_counter() - t0:.2f} s")
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tokens = serve.generate(model, prompts, n)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()["folded_causal_attention"]
+    log(f"  generate({B}x{S} prompt, {n} tokens): first call {first_s:.3f} s"
+        f", attention-kernel launches {launches} (layers "
+        f"{cfg.num_layers})")
+    if tokens.shape != (B, n) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        fail(f"serve path: tokens {tuple(tokens.shape)} out of range")
+    if launches != cfg.num_layers:
+        fail(f"serve path: {launches} attention-kernel launches for one "
+             f"prefill of {cfg.num_layers} layers")
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tokens2 = serve.generate(model, prompts, n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(tokens, tokens2):
+        fail("serve path: a second generate gave other tokens")
+
+    max_len = S + n
+    prefill_ms = host_ms(lambda: model.prefill(prompts, max_len), 3)
+    _, states = model.prefill(prompts, max_len)
+    tok = tokens[:, :1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        logits, states = model.decode_step(tok, states, S + i)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    del states
+    res = {"arch": SERVE_ARCH, "batch": B, "prompt": S, "tokens": n,
+           "launches_per_prefill": launches, "generate_first_s": first_s,
+           "generate_s": gen_s, "generate_tok_s": B * n / gen_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "decode_tok_s": B / decode_ms * 1e3,
+           "prefill_tok_s": B * S / prefill_ms * 1e3,
+           "peak_bytes": peak, "before_bytes": before}
+    log(f"  prefill {prefill_ms:.2f} ms ({res['prefill_tok_s']:.0f} tok/s), "
+        f"decode {decode_ms:.3f} ms/token step ({res['decode_tok_s']:.0f} "
+        f"tok/s), generate {gen_s:.3f} s ({res['generate_tok_s']:.1f} tok/s);"
+        f" peak device memory {peak} bytes (before {before}) (host clock, "
+        f"synchronized)")
+
+    dropped = functools.partial(planted_attention, fault="diagonal_dropped")
+    for S_p in (S, 40):
+        p = prompts[:, :S_p]
+        reset_all_launches()
+        lk, _ = model.prefill(p, S_p + n)
+        torch.cuda.synchronize()
+        count = all_launches()["folded_causal_attention"]
+        if not torch.isfinite(lk).all():
+            fail(f"serve path prompt {S_p}: non-finite logits")
+        for what, fn in (("plain", plain_attention),
+                         ("planted diagonal_dropped", dropped)):
+            lp, _ = model.prefill(p, S_p + n, attn_fn=fn)
+            rel = float((lk - lp).abs().max() / lp.abs().max())
+            agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+            log(f"  prompt {S_p}: prefill logits, kernel vs {what} attention:"
+                f" max|k-p|/max|p| = {rel:.3e} (tol {LOGIT_TOL:g}), greedy "
+                f"tokens agree {agree:.3f}, launches {count}")
+            if what == "plain":
+                res[f"logits_rel_err_prompt{S_p}"] = rel
+                res[f"greedy_agree_prompt{S_p}"] = agree
+                if not torch.isfinite(lp).all():
+                    fail(f"serve path prompt {S_p}: non-finite plain logits")
+                if not rel <= LOGIT_TOL:
+                    fail(f"serve path prompt {S_p}: logits differ from the "
+                         f"plain-attention model by {rel:.3e} > "
+                         f"{LOGIT_TOL:g}")
+                if agree != 1.0:
+                    fail(f"serve path prompt {S_p}: greedy tokens of the "
+                         f"plain-attention model agree at {agree:.3f} only")
+            else:
+                res[f"planted_logits_rel_err_prompt{S_p}"] = rel
+                res[f"planted_greedy_agree_prompt{S_p}"] = agree
+                if rel <= LOGIT_TOL:
+                    fail(f"serve path prompt {S_p}: LOGIT_TOL does not "
+                         f"reject the planted {what} ({rel:.3e})")
+        if count != cfg.num_layers:
+            fail(f"serve path prompt {S_p}: {count} attention-kernel "
+                 f"launches for {cfg.num_layers} layers")
+    res["profile"] = serve_profile(model, prompts, max_len,
+                                   OUT / "profile_serve.txt")
+    del model, prompts
+    torch.cuda.empty_cache()
+    return res
+
+
 _BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel")),
             ("cuFFT", ("fft",)),
             ("gather / scatter", ("index", "gather", "scatter")),
@@ -1220,7 +1638,8 @@ def main() -> int:
     from repro_torch.kernels import autotune, runtime
     t0 = time.perf_counter()
     logs = runtime.build_all(verbose=True)
-    log(f"  built {list(logs)} in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"  built {list(logs)} in {build_s:.1f} s")
     OUT.mkdir(exist_ok=True)
     for name, text in logs.items():
         (OUT / f"ptxas_{name}.txt").write_text(text)
@@ -1257,6 +1676,17 @@ def main() -> int:
                     fail(f"dwt_dense_smem_bytes: estimate {p} != kernel's "
                          f"{c} (span={span}, C2={C2}, itemsize={itemsize})")
     log("  shared-memory estimates agree with every library")
+    fn = runtime.library("folded_attention").folded_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    from repro_torch.kernels import folded_attention as fa
+    attn_smem = {f"bq{bq}_D{D}": fn(bq, D) for bq in fa.KERNEL_BQ
+                 for D in fa.KERNEL_D}
+    log(f"  folded_attention dynamic shared memory per block: up to "
+        f"{max(attn_smem.values())} bytes (bq=128, D=128)")
+    if max(attn_smem.values()) > 232448:
+        fail(f"folded_attention: {max(attn_smem.values())} bytes of shared "
+             f"memory exceed the 232448 a block can have")
 
     log("== 3. kernels against their plain versions")
     for B, dt, V, lc, prec in ((4, torch.float64, 1, 1, "fp32"),
@@ -1381,7 +1811,13 @@ def main() -> int:
 
     log("== 6. plan(512) f64: one inverse -> forward on one card")
     r512 = big_roundtrip(512, timing["memory"])
-    torch.cuda.empty_cache()
+    free_plans()       # phase 7 measures its own peak
+
+    log("== 7a. folded causal attention against its plain version")
+    attn = attention_cases()
+    log(f"== 7b. serve path: {SERVE_ARCH} generate, batch {SERVE_BATCH}, "
+        f"prompt {SERVE_PROMPT}, {SERVE_TOKENS} greedy tokens")
+    serve = serve_path()
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
@@ -1397,6 +1833,9 @@ def main() -> int:
                "tl", "work_blocks", "dense_blocks")
     kernels = []
     for name, meta in KERNELS.items():
+        if name == "folded_causal_attention":
+            kernels.append(attention_record(name, meta, attn, serve))
+            continue
         main_rec = {**recs, **srecs, **trecs, **orecs}[name]
         extra = {"f32_B64": {**recs32, **srecs32, **trecs32, **orecs32}[name]}
         if name in {**recs1024, **srecs1024}:
@@ -1440,6 +1879,9 @@ def main() -> int:
                "fft_lanes": fft_lanes, "streaming_equals_fused": bitwise,
                "bf16_planted_faults_b128_f32": planted,
                "tol_bf16": TOL_BF16,
+               "attention": attn, "attn_tol": ATTN_TOL,
+               "serve_path": serve, "logit_tol": LOGIT_TOL,
+               "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke_summary.json").write_text(json.dumps(
         {"summary": summary, "kernels": kernels}, indent=1))

@@ -7,15 +7,18 @@
                        the on-the-fly pair over every degree, no skip
   csrc/streaming.cu    their l-chunked streaming twins + window builder
   csrc/dwt_dense.cu    dense / ragged DWT / iDWT against a resident table
+  csrc/folded_attention.cu  causal flash attention, folded schedule
   dwt_fused.py         wrappers, launch counts and plain versions of ...
   streaming.py           ... the streaming kernels
   wigner_rec.py          ... the on-the-fly kernels, and recurrence_step,
                          the step's torch twin
   dwt.py                 ... the dense and ragged kernels
-  ops.py               dwt_fn / idwt_fn closures for core.batched
+  folded_attention.py    ... the attention kernel
+  ops.py               dwt_fn / idwt_fn closures for core.batched, and
+                       attention for the LM
   autotune.py          static schedule rules (shared memory, V="auto")
   runtime.py           nvcc build at first use + ctypes loading and launch
   ref.py               plain torch oracles
 """
-from . import (autotune, dwt, dwt_fused, ops, ref, runtime,  # noqa: F401
-               streaming, wigner_rec)
+from . import (autotune, dwt, dwt_fused, folded_attention,  # noqa: F401
+               ops, ref, runtime, streaming, wigner_rec)

@@ -23,6 +23,9 @@
     stack of the streaming kernels, built once per (plan, tk, lchunk,
     precision, :func:`window_source`).
 
+  * :func:`attention` -- the folded causal attention kernel
+    (:mod:`.folded_attention`), the LM prefill's attention.
+
 The fused and ragged kernels run in the l-start-sorted cluster order and
 read and write the caller's (K, ., C2) stacks (and the ragged kernel the
 table) through ``perm`` in place: no permuted copy is ever made.
@@ -41,8 +44,9 @@ from repro_torch.core.batched import (SoftPlan, plan_lstart, plan_memo,
 
 from . import autotune, dwt_fused, streaming, wigner_rec
 from . import dwt as dwt_kernels
+from . import folded_attention as fa
 
-__all__ = ["make_dwt_fn", "make_idwt_fn", "onthefly_inputs",
+__all__ = ["attention", "make_dwt_fn", "make_idwt_fn", "onthefly_inputs",
            "onthefly_inputs_from_arrays", "fused_metadata", "check_impl",
            "KERNEL_IMPLS", "RaggedMeta",
            "launch_inputs", "streaming_inputs", "window_source",
@@ -389,3 +393,10 @@ def make_idwt_fn(plan: SoftPlan, impl: str = "fused", *, tk: int = 8,
     see :func:`make_dwt_fn`.  impl="ragged" raises ValueError, as in the
     reference: the ragged grid has no inverse kernel."""
     return _kernel_fn(plan, "idwt", impl, tk, tl, lchunk, precision, batch)
+
+
+# Folded causal flash attention (kernels/folded_attention.py): the CUDA
+# kernel for CUDA tensors, its plain version for CPU ones.  The same
+# function under the reference's name, repro.kernels.ops.attention, so that
+# the LM stack and the tests of both packages call one name.
+attention = fa.folded_causal_attention

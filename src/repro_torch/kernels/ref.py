@@ -1,11 +1,11 @@
-"""Plain torch oracles of the fused DWT kernels -- the port of
+"""Plain torch oracles of the kernels -- the port of
 ``repro/kernels/ref.py`` (``dwt_ref``, ``idwt_ref``,
-``wigner_rec_table_ref``)."""
+``wigner_rec_table_ref``, ``attention_ref``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dwt_ref", "idwt_ref", "wigner_rec_table_ref"]
+__all__ = ["dwt_ref", "idwt_ref", "wigner_rec_table_ref", "attention_ref"]
 
 
 def dwt_ref(d: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -57,3 +57,27 @@ def wigner_rec_table_ref(seeds: torch.Tensor, m: torch.Tensor,
         d_prev = torch.where(active, d_cur, zero)
         d_cur = torch.where(active, d_next, zero)
     return torch.stack(rows, dim=1)  # (K, B, J)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, scale=None) -> torch.Tensor:
+    """Multi-head attention oracle with GQA.
+
+    q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.
+    f32 softmax regardless of input dtype; returns q.dtype.
+    """
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    if scale is None:
+        scale = 1.0 / D**0.5
+    kq = torch.repeat_interleave(k, g, dim=1)
+    vq = torch.repeat_interleave(v, g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float()) * scale
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask[None, None], s, float("-inf"))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / torch.sum(e, dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vq.float()).to(q.dtype)

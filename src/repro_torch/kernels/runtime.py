@@ -37,7 +37,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 # one library per csrc/<name>.cu
-SOURCES = ("dwt_fused", "streaming", "dwt_dense")
+SOURCES = ("dwt_fused", "streaming", "dwt_dense", "folded_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -115,17 +115,19 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def launch(source: str, symbol: str, what: str, device, tensors, ints):
+def launch(source: str, symbol: str, what: str, device, tensors, ints,
+           floats=()):
     """Call the C launch function ``symbol`` of csrc/<source>.cu on the
     current stream of ``device``.  Its arguments are the tensors' device
-    pointers (None: a null pointer), then the ints, then the stream; it
-    returns a cudaError_t, and a non-zero one raises."""
+    pointers (None: a null pointer), then the ints, then the floats, then
+    the stream; it returns a cudaError_t, and a non-zero one raises."""
     fn = getattr(library(source), symbol)
     fn.argtypes = [ctypes.c_void_p] * len(tensors) \
-        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+        + [ctypes.c_int] * len(ints) + [ctypes.c_float] * len(floats) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
-        err = fn(*(ptr(t) for t in tensors), *ints,
+        err = fn(*(ptr(t) for t in tensors), *ints, *floats,
                  torch.cuda.current_stream(device).cuda_stream)
     check_launch(err, what)
 

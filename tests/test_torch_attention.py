@@ -1,0 +1,236 @@
+"""The folded causal attention of the port (repro_torch.kernels.
+folded_attention, ops.attention) against the reference package on
+identical inputs, and the LM prefill's padded call of it.
+
+On the CPU the wrapper runs the kernel's plain version; the JAX side
+runs its Pallas kernel in interpret mode, as the reference's own tests
+do.  Tolerances are the reference's (tests/test_kernels.py): 2e-4 in
+f32, 3e-2 in bf16 (the output is rounded to bf16, and the kernel rounds
+p to bf16 before P V).  The two schedules must agree bit for bit
+(torch.equal): both run each q-block through the same block step in the
+same order.  The CUDA kernel itself is held against this plain version
+on the card by chip_smoke.py (phase 7)."""
+import importlib.util
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import folded_attention as jfa  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+
+from repro_torch.kernels import folded_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _qkv(B, Hq, Hkv, S, D, seed, scales=(0.5, 0.5, 1.0)):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=(B, H, S, D)) * s).astype(np.float32)
+            for H, s in zip((Hq, Hkv, Hkv), scales)]
+
+
+def _both(arrays, dtype):
+    """The same values as JAX arrays and torch tensors of ``dtype``."""
+    j = [jnp.asarray(a, JDT[dtype]) for a in arrays]
+    t = [torch.from_numpy(a).to(TDT[dtype]) for a in arrays]
+    return j, t
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("S,bq", [(64, 16), (128, 32), (128, 64)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (4, 1)])
+def test_attention_sweep_matches_reference(S, bq, Hq, Hkv):
+    """tests/test_kernels.py::test_folded_attention_sweep's cases: the
+    port's plain version against the Pallas kernel and both oracles."""
+    arrays = _qkv(2, Hq, Hkv, S, 32, seed=S + bq + Hkv)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    got = tops.attention(tq, tk, tv, bq=bq, bk=bq).numpy()
+    _close(got, jops.attention(jq, jk, jv, bq=bq, bk=bq), TOL["float32"])
+    _close(got, jref.attention_ref(jq, jk, jv), TOL["float32"])
+    _close(tref.attention_ref(tq, tk, tv).numpy(),
+           jref.attention_ref(jq, jk, jv), TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_dtypes_match_reference(dtype):
+    """tests/test_kernels.py::test_folded_attention_dtypes' case."""
+    arrays = _qkv(1, 2, 2, 64, 64, seed=7, scales=(0.3, 0.3, 1.0))
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    got = tops.attention(tq, tk, tv, bq=16, bk=16)
+    assert got.dtype == TDT[dtype]
+    got = got.float().numpy()
+    _close(got, jops.attention(jq, jk, jv, bq=16, bk=16).astype(jnp.float32),
+           TOL[dtype])
+    _close(got, jref.attention_ref(jq, jk, jv).astype(jnp.float32),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,S,D,bq", [(2, 2, 128, 32, 16),
+                                           (9, 3, 256, 64, 64),
+                                           (4, 2, 64, 36, 16)])
+def test_folded_equals_naive(dtype, Hq, Hkv, S, D, bq):
+    """Both schedules give the same bits; folded runs the triangle's
+    Qb(Qb+1)/2 of the reference's Qb^2 grid slots."""
+    _, (q, k, v) = _both(_qkv(2, Hq, Hkv, S, D, seed=S + D), dtype)
+    out_f = tops.attention(q, k, v, bq=bq, bk=bq, schedule="folded")
+    out_n = tops.attention(q, k, v, bq=bq, bk=bq, schedule="naive")
+    assert torch.equal(out_f, out_n)
+    qb = S // bq
+    assert tfa.grid_slots(S, bq, "folded") == qb * (qb + 1) // 2 \
+        < tfa.grid_slots(S, bq, "naive") == qb * qb
+
+
+def _message(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return str(info.value)
+
+
+@pytest.mark.parametrize("case", ["odd_blocks", "heads", "bq_bk", "S_bq",
+                                  "schedule"])
+def test_errors_match_reference(case):
+    """The reference's checks, with its messages
+    (tests/test_kernels.py::test_folded_attention_rejects_odd_blocks and
+    the other ValueErrors of folded_causal_attention)."""
+    shapes, kw = {
+        "odd_blocks": (((1, 1, 48, 16),) * 3, dict(bq=16, bk=16)),
+        "heads": (((1, 3, 32, 16), (1, 2, 32, 16), (1, 2, 32, 16)),
+                  dict(bq=16, bk=16)),
+        "bq_bk": (((1, 1, 64, 16),) * 3, dict(bq=16, bk=32)),
+        "S_bq": (((1, 1, 40, 16),) * 3, dict(bq=16, bk=16)),
+        "schedule": (((1, 1, 32, 16),) * 3,
+                     dict(bq=16, bk=16, schedule="zigzag")),
+    }[case]
+    arrays = [np.zeros(s, np.float32) for s in shapes]
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    want = _message(lambda: jops.attention(jq, jk, jv, **kw))
+    got = _message(lambda: tops.attention(tq, tk, tv, **kw))
+    assert got == want
+    if case == "odd_blocks":
+        assert "even number of q-blocks" in got
+
+
+def test_grid_slots_match_reference():
+    """benchmarks/kernel_schedule.py's grid (S, bq = 256) and more."""
+    for S in (2048, 4096, 8192, 32768):
+        for bq in (16, 64, 128, 256):
+            for schedule in ("folded", "naive"):
+                assert tfa.grid_slots(S, bq, schedule) == \
+                    jfa.grid_slots(S, bq, schedule)
+
+
+@pytest.mark.parametrize("qb_count", [2, 4, 16])
+def test_schedule_order_runs_every_qblock_once(qb_count):
+    for schedule in ("folded", "naive"):
+        order = tfa.schedule_order(qb_count, schedule)
+        assert sorted(sum(order, [])) == list(range(qb_count))
+    steps = [sum(qb + 1 for qb in blocks)
+             for blocks in tfa.schedule_order(qb_count, "folded")]
+    assert steps == [qb_count + 1] * (qb_count // 2)   # balanced
+
+
+def test_strided_views_need_no_copy():
+    """(B, S, H, D) projections pass as transposed views; the output's
+    transpose back is contiguous and the values equal the contiguous
+    call's."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 64, 4, 32), generator=g)
+    k = torch.randn((2, 64, 2, 32), generator=g)
+    v = torch.randn((2, 64, 2, 32), generator=g)
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    out = tops.attention(*args, bq=16, bk=16)
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, tops.attention(
+        *(a.contiguous() for a in args), bq=16, bk=16))
+
+
+def test_kernel_operand_checks():
+    """What the CUDA kernel does not take raises before any launch."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype)
+    q, kv = t(8, 9, 2048, 64), t(8, 3, 2048, 64)
+    tfa.check_kernel_operands(q, kv, kv, 128)           # the serving shape
+    for args, bq, what in (
+            ((t(1, 2, 64, 48), t(1, 2, 64, 48), t(1, 2, 64, 48)), 16,
+             "head width"),
+            ((q, kv, kv), 8, "bq in"),
+            ((q.double(), kv.double(), kv.double()), 128, "float32 or"),
+            ((q, kv.float(), kv), 128, "float32 or"),
+            ((q, t(8, 3, 1024, 64), kv), 128, "k, v must be")):
+        with pytest.raises(ValueError, match=what):
+            tfa.check_kernel_operands(*args, bq)
+
+
+@pytest.mark.parametrize("S", [1, 17, 40, 64, 300])
+def test_prefill_attention_padding_matches_chunked(S):
+    """The LM prefill's call: S padded at the tail to 2 bq, the padded
+    rows sliced off, against the reference model's _chunked_causal on the
+    unpadded (B, S, H, D) inputs (reduced smollm's GQA 4/2, D = 36)."""
+    rng = np.random.default_rng(S)
+    q, k, v = (rng.normal(size=(2, S, H, 36)).astype(np.float32)
+               for H in (4, 2, 2))
+    want = jattn._chunked_causal(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), chunk=32, window=0,
+                                 softcap_val=0.0, scale=1.0 / np.sqrt(36))
+    got = tattn.prefill_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == (2, S, 4, 36)
+    _close(got.numpy(), want, TOL["float32"])
+    bq = tattn.attention_block(S)
+    assert bq in tfa.KERNEL_BQ and -(-S // (2 * bq)) * 2 * bq - S < 2 * bq
+
+
+def test_attention_block_sizes():
+    assert [tattn.attention_block(S) for S in (1, 32, 33, 64, 65, 256, 2048,
+                                               4096)] == \
+        [16, 16, 32, 32, 64, 128, 128, 128]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its functions import torch lazily)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype,fault", [
+    ("bfloat16", None), ("bfloat16", "p_unrounded"),
+    ("bfloat16", "diagonal_dropped"), ("float32", None),
+    ("float32", "tf32_scores"), ("float32", "diagonal_dropped")])
+def test_chip_limits_separate_sound_from_planted(dtype, fault):
+    """chip_smoke.py's ATTN_TOL holds the CUDA kernel to its plain version
+    on the card.  Here the Pallas kernel (interpret mode), a second sound
+    implementation, passes it against the port's plain version, and each
+    fault planted in the plain version (chip_smoke.ATTN_FAULTS) breaks
+    it."""
+    cs = _chip_smoke()
+    assert fault is None or fault in cs.ATTN_FAULTS[dtype]
+    arrays = _qkv(2, 4, 2, 256, 36, seed=11)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    jout = np.asarray(jops.attention(jq, jk, jv, bq=32, bk=32)
+                      .astype(jnp.float32))
+    got = torch.from_numpy(jout.copy()).to(TDT[dtype])
+    want = (tops.attention(tq, tk, tv, bq=32, bk=32) if fault is None else
+            cs.planted_attention(tq, tk, tv, bq=32, bk=32, fault=fault))
+    r, tol = cs.attention_readings(got, want), cs.ATTN_TOL[dtype]
+    passes = r["elem"] <= tol["elem"] and r["l2"] <= tol["l2"]
+    assert passes == (fault is None), r

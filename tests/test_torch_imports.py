@@ -23,6 +23,8 @@ def test_import_loads_no_jax_or_reference():
         "import sys\n"
         "import repro_torch, repro_torch.plan\n"
         "import repro_torch.core, repro_torch.kernels, repro_torch.obs\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.launch\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert callable(repro_torch.plan)\n"
