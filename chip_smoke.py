@@ -8,7 +8,10 @@ Phases (any failure exits non-zero):
   2. build every CUDA source of src/repro_torch/kernels/csrc with nvcc
      (one process per source, all at once), print each kernel's
      registers and spills, and hold the host's shared-memory estimates
-     to the kernels' own figures;
+     to the kernels' own figures; for the attention kernel, each
+     instantiation's registers, local memory, shared memory per block
+     and blocks per SM (at most 232 448 bytes; the bf16 kernel at
+     bq = 128, D = 64 / 128 without local memory);
   3. each kernel against its plain torch version on the card: the fused
      DWT / iDWT at the main path's shapes (B = 128 f64 V = 8, B = 64 f32
      V = 8), the 1024-thread variant at J = 1024 (a subset of B = 512's
@@ -54,9 +57,11 @@ Phases (any failure exits non-zero):
      both schedules, against its plain version within ATTN_TOL and folded
      == naive bit for bit: the serving shape (B = 8, Hq = 9, Hkv = 3,
      S = 2048, D = 64, bf16, bq = 128) timed beside its plain version,
-     scaled_dot_product_attention and its bound; f32 at B = 2, S = 512;
-     D = 36 and 128; the reference's edge shapes (S 64 / 128, bq
-     16 / 32 / 64, Hq / Hkv 4/4, 4/2, 4/1); at every shape ATTN_TOL must
+     scaled_dot_product_attention and its bound, with TFLOP/s and the
+     ratios to both; f32 at B = 2, S = 512; bf16 D = 128 at B = 4,
+     Hq = 16, Hkv = 4, S = 2048 (timed the same way); D = 36 and 128;
+     the reference's edge shapes (S 64 / 128, bq 16 / 32 / 64,
+     Hq / Hkv 4/4, 4/2, 4/1); at every shape ATTN_TOL must
      reject faults planted in the plain version (p not rounded before
      P V, scores in TF32, the diagonal kv block dropped);
   7b. the serve path: smollm-135m at its published config (bf16, random
@@ -182,31 +187,46 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def ptxas_summary(name: str, text: str) -> list[str]:
-    """One line per compiled kernel: short name, registers, spills."""
-    rows, cur, stack = [], None, ""
+def ptxas_kernels(text: str) -> list[dict]:
+    """Every kernel of an `nvcc -Xptxas -v` log: its mangled name,
+    registers, stack frame and spill bytes."""
+    rows, cur, props = [], None, {}
     for line in text.splitlines():
         hit = re.search(r"Compiling entry function '([^']+)'", line)
         if hit:
-            cur = hit.group(1)
+            cur, props = hit.group(1), {}
             continue
-        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        line)
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", line)
         if hit and cur:
-            stack = f"spill st/ld {hit.group(1)}/{hit.group(2)} B"
+            props = {"stack": int(hit.group(1)),
+                     "spill_stores": int(hit.group(2)),
+                     "spill_loads": int(hit.group(3))}
             continue
         hit = re.search(r"Used (\d+) registers", line)
         if hit and cur:
-            short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
-                              r"dwt_stream_inv|build_windows_kernel|"
-                              r"onthefly_fwd|onthefly_inv|dense_kernel|"
-                              r"folded_attention_kernel)"
-                              r"I(.*?)EEv", cur)
-            label = f"{short.group(1)}<{short.group(2)[:40]}>" if short \
-                else cur[:60]
-            rows.append(f"  [{name}] {label}: {hit.group(1)} registers, "
-                        f"{stack}")
+            rows.append({"kernel": cur, "registers": int(hit.group(1)),
+                         **props})
             cur = None
+    return rows
+
+
+def ptxas_summary(name: str, text: str) -> list[str]:
+    """One line per compiled kernel: short name, registers, spills."""
+    rows = []
+    for k in ptxas_kernels(text):
+        short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
+                          r"dwt_stream_inv|build_windows_kernel|"
+                          r"onthefly_fwd|onthefly_inv|dense_kernel|"
+                          r"folded_attention_bf16_kernel|"
+                          r"folded_attention_scalar_kernel)"
+                          r"I(.*?)EEv", k["kernel"])
+        label = f"{short.group(1)}<{short.group(2)[:40]}>" if short \
+            else k["kernel"][:60]
+        spills = (f"spill st/ld {k['spill_stores']}/{k['spill_loads']} B"
+                  if "spill_stores" in k else "")
+        rows.append(f"  [{name}] {label}: {k['registers']} registers, "
+                    f"{spills}")
     return rows
 
 
@@ -1194,6 +1214,74 @@ LOGIT_TOL = 5e-2
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "smollm-135m", 8, 2048, 32
 
 
+def attention_kernel_info(ptxas_text: str) -> dict:
+    """Phase 2 for the attention kernel: every instantiation's registers,
+    stack frame and spills (from its ptxas log), dynamic shared memory
+    (folded_attention_smem_bytes) and resident blocks per SM (the card's
+    occupancy query), held to the 232 448 bytes a block can have and to
+    one block per SM at least; the bf16 instantiations at bq = 128,
+    D = 64 / 128 held to no local memory."""
+    import ctypes
+    from repro_torch.kernels import folded_attention as fa
+    from repro_torch.kernels import runtime
+    compiled = {}
+    for k in ptxas_kernels(ptxas_text):
+        hit = re.search(r"folded_attention_(?:bf16|scalar)_kernelI"
+                        r"(f|13__nv_bfloat16)?Li(\d+)ELi(\d+)E", k["kernel"])
+        if hit:
+            dname = "float32" if hit.group(1) == "f" else "bfloat16"
+            compiled[(dname, int(hit.group(2)), int(hit.group(3)))] = k
+    lib = runtime.library("folded_attention")
+    smem_fn = lib.folded_attention_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 3
+    smem_fn.restype = ctypes.c_longlong
+    blocks_fn = lib.folded_attention_blocks_per_sm
+    blocks_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    blocks_fn.restype = ctypes.c_int
+    out = {}
+    for dname, is_bf16 in (("bfloat16", 1), ("float32", 0)):
+        for bq in fa.KERNEL_BQ:
+            for D in fa.KERNEL_D:
+                k = compiled.get((dname, bq, D))
+                if k is None or "stack" not in k:
+                    fail(f"folded_attention {dname} bq={bq} D={D}: no ptxas "
+                         f"figures in the build log")
+                blocks = ctypes.c_int()
+                err = blocks_fn(bq, D, is_bf16, ctypes.addressof(blocks))
+                if err:
+                    fail(f"folded_attention_blocks_per_sm({bq}, {D}, "
+                         f"{dname}): cudaError_t {err}")
+                rec = {"registers": k["registers"],
+                       "stack_bytes": k["stack"],
+                       "spill_bytes": k["spill_stores"],
+                       "smem_bytes": smem_fn(bq, D, is_bf16),
+                       "blocks_per_sm": blocks.value}
+                out[f"{dname}_bq{bq}_D{D}"] = rec
+                if is_bf16 or (bq, D) == (128, 128):
+                    log(f"  folded_attention {dname} bq={bq:3d} D={D:3d}: "
+                        f"{rec['registers']} registers, stack "
+                        f"{rec['stack_bytes']} B, spills {rec['spill_bytes']}"
+                        f" B, shared {rec['smem_bytes']} B per block, "
+                        f"{rec['blocks_per_sm']} block(s) per SM")
+                if rec["smem_bytes"] > 232448 or rec["blocks_per_sm"] < 1:
+                    fail(f"folded_attention {dname} bq={bq} D={D}: "
+                         f"{rec['smem_bytes']} bytes of shared memory, "
+                         f"{rec['blocks_per_sm']} blocks per SM")
+                if is_bf16 and bq == 128 and D in (64, 128) \
+                        and (rec["stack_bytes"] or rec["spill_bytes"]):
+                    fail(f"folded_attention bf16 bq=128 D={D} uses local "
+                         f"memory (stack {rec['stack_bytes']} B, spills "
+                         f"{rec['spill_bytes']} B)")
+    return out
+
+
+def attention_ops(q) -> int:
+    """Operations of one causal attention call: the S(S+1)/2 (query, key)
+    pairs of the triangle, 4 D each for q k^T and P V, per (batch, head)."""
+    B, Hq, S, D = q.shape
+    return B * Hq * 4 * D * S * (S + 1) // 2
+
+
 def attention_bound(q, k, dname):
     """(bound_ms, bound_by) of one attention call: q, k, v read once and
     the output written once, against the products the causal function
@@ -1201,10 +1289,8 @@ def attention_bound(q, k, dname):
     each for q k^T and P V, per (batch, head)) at the dtype's dense tensor
     rate (989 TFLOP/s bf16) or the f32 rate outside the tensor cores
     (67 TFLOP/s)."""
-    B, Hq, S, D = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops = B * Hq * 4 * D * S * (S + 1) // 2
-    return _bound(nbytes, ops, dname)
+    return _bound(nbytes, attention_ops(q), dname)
 
 
 def plain_attention(q, k, v, *, bq, bk):
@@ -1322,17 +1408,26 @@ def attention_case(B, Hq, Hkv, S, D, dtype, bq, *, seed, time_it=False):
         rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 10)
         rec["bound_ms"], rec["bound_by"] = attention_bound(q, k, dname)
+        rec["tflops"] = attention_ops(q) / rec["ms"] / 1e9
+        rec["naive_tflops"] = attention_ops(q) / rec["naive_ms"] / 1e9
+        rec["over_library"] = rec["ms"] / rec["library_ms"]
+        rec["over_bound"] = rec["ms"] / rec["bound_ms"]
         log(f"    folded {rec['ms']:.4f} ms  naive {rec['naive_ms']:.4f} ms"
             f"  plain {rec['plain_ms']:.2f} ms  library(sdpa) "
             f"{rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']})")
+        log(f"    folded {rec['tflops']:.1f} TFLOP/s (naive "
+            f"{rec['naive_tflops']:.1f}) of {attention_ops(q):.4g} "
+            f"operations; kernel / sdpa {rec['over_library']:.2f}, kernel /"
+            f" bound {rec['over_bound']:.2f}")
     del q, k, v, got, naive, want
     return rec
 
 
 def attention_cases() -> dict:
-    """Phase 7a: the serving shape (timed), f32, D = 36 / 128, and the
-    edge shapes of tests/test_kernels.py:159-200."""
+    """Phase 7a: the serving shape (timed), f32, a bf16 D = 128 shape at
+    S = 2048 (timed), D = 36 / 128, and the edge shapes of
+    tests/test_kernels.py:159-200."""
     import torch
     if torch.backends.cuda.matmul.allow_tf32:
         fail("allow_tf32 is on: the plain version's f32 products would "
@@ -1341,7 +1436,9 @@ def attention_cases() -> dict:
     recs = {"serve": attention_case(8, 9, 3, 2048, 64, bf16, 128, seed=70,
                                     time_it=True),
             "f32": attention_case(2, 4, 2, 512, 64, f32, 128, seed=71,
-                                  time_it=True)}
+                                  time_it=True),
+            "d128": attention_case(4, 16, 4, 2048, 128, bf16, 128, seed=79,
+                                   time_it=True)}
     for i, (B, Hq, Hkv, S, D, dt, bq) in enumerate((
             (2, 4, 2, 256, 36, bf16, 32), (2, 4, 2, 256, 36, f32, 32),
             (2, 4, 1, 512, 128, bf16, 128), (2, 4, 1, 512, 128, f32, 64),
@@ -1425,15 +1522,20 @@ def attention_record(name, meta, attn, serve) -> dict:
         "max_abs_err": rec["max_abs_err"], "elem_err": rec["elem"],
         "l2_err": rec["l2"],
         "ms": rec["ms"], "kernel_ms": rec["ms"], "naive_ms": rec["naive_ms"],
+        "tflops": rec["tflops"],
+        "over_library": rec["over_library"], "over_bound": rec["over_bound"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
         "at": {k: rec[k] for k in ("B", "Hq", "Hkv", "S", "D", "dtype",
                                    "bq")},
-        "more": {"f32_B2_S512": {k: attn["f32"][k] for k in (
+        "more": {key: {k: attn[case][k] for k in (
             "max_abs_err", "elem", "l2", "ms", "naive_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "dtype", "S")}},
+            "library_ms", "bound_ms", "bound_by", "tflops", "dtype", "B",
+            "Hq", "Hkv", "S", "D")}
+            for key, case in (("f32_B2_S512", "f32"),
+                              ("bf16_D128_B4_S2048", "d128"))},
     }
 
 
@@ -1538,6 +1640,14 @@ def serve_path() -> dict:
                          f"plain-attention model by {rel:.3e} > "
                          f"{LOGIT_TOL:g}")
                 if agree != 1.0:
+                    top2 = lp.topk(2, -1).values
+                    for b in torch.nonzero(lk.argmax(-1) != lp.argmax(-1)
+                                           ).flatten().tolist():
+                        log(f"    sequence {b}: the plain model's top-2 "
+                            f"logit gap {float(top2[b, 0] - top2[b, 1]):.5f};"
+                            f" its logit of the kernel's token "
+                            f"{float(lp[b, lk[b].argmax()]):.5f}, of its own "
+                            f"{float(top2[b, 0]):.5f}")
                     fail(f"serve path prompt {S_p}: greedy tokens of the "
                          f"plain-attention model agree at {agree:.3f} only")
             else:
@@ -1676,17 +1786,7 @@ def main() -> int:
                     fail(f"dwt_dense_smem_bytes: estimate {p} != kernel's "
                          f"{c} (span={span}, C2={C2}, itemsize={itemsize})")
     log("  shared-memory estimates agree with every library")
-    fn = runtime.library("folded_attention").folded_attention_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 2
-    fn.restype = ctypes.c_longlong
-    from repro_torch.kernels import folded_attention as fa
-    attn_smem = {f"bq{bq}_D{D}": fn(bq, D) for bq in fa.KERNEL_BQ
-                 for D in fa.KERNEL_D}
-    log(f"  folded_attention dynamic shared memory per block: up to "
-        f"{max(attn_smem.values())} bytes (bq=128, D=128)")
-    if max(attn_smem.values()) > 232448:
-        fail(f"folded_attention: {max(attn_smem.values())} bytes of shared "
-             f"memory exceed the 232448 a block can have")
+    attn_kernels = attention_kernel_info(logs["folded_attention"])
 
     log("== 3. kernels against their plain versions")
     for B, dt, V, lc, prec in ((4, torch.float64, 1, 1, "fp32"),
@@ -1879,7 +1979,8 @@ def main() -> int:
                "fft_lanes": fft_lanes, "streaming_equals_fused": bitwise,
                "bf16_planted_faults_b128_f32": planted,
                "tol_bf16": TOL_BF16,
-               "attention": attn, "attn_tol": ATTN_TOL,
+               "attention": attn, "attention_kernels": attn_kernels,
+               "attn_tol": ATTN_TOL,
                "serve_path": serve, "logit_tol": LOGIT_TOL,
                "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}

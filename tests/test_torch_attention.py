@@ -234,3 +234,79 @@ def test_chip_limits_separate_sound_from_planted(dtype, fault):
     r, tol = cs.attention_readings(got, want), cs.ATTN_TOL[dtype]
     passes = r["elem"] <= tol["elem"] and r["l2"] <= tol["l2"]
     assert passes == (fault is None), r
+
+
+def _rtz_f32(x):
+    """f64 x rounded toward zero to f32."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_steps(a, b, c=None):
+    """a @ b as mma.sync forms it: over k-steps of 16, the exact sum of
+    the running f32 sum and the step's 16 products (here in f64), rounded
+    toward zero to f32 (the card's rounding of its f32 sums)."""
+    for k0 in range(0, a.shape[-1], 16):
+        part = a[..., k0:k0 + 16].double() @ b[..., k0:k0 + 16, :].double()
+        c = _rtz_f32(part if c is None else c.double() + part)
+    return c
+
+
+def _mma_emulation(q, k, v, *, bq, scale):
+    """The bf16 CUDA kernel's arithmetic in torch: per q-block of bq rows,
+    one online-softmax step per kv block of bq keys; q k^T through
+    _mma_steps over d; the softmax in base 2 (the scores times scale
+    log2(e), rounded to f32; p = exp2(s - m)), l * alpha + rowsum(p) from
+    the f32 p, p rounded to bf16; the block's P V through _mma_steps over
+    keys from zero, added to acc * alpha in round-to-nearest; the output
+    acc / l rounded to bf16."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    qf = q.float().unflatten(1, (Hkv, Hq // Hkv))
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    scale2 = torch.tensor(scale) * torch.tensor(1.4426950408889634)
+    out = torch.empty_like(qf)
+    for qb in range(S // bq):
+        rows = slice(qb * bq, (qb + 1) * bq)
+        qs = qf[:, :, :, rows]
+        m = torch.full(qs.shape[:-1] + (1,), float("-inf"))
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qs)
+        for kv in range(qb + 1):
+            cols = slice(kv * bq, (kv + 1) * bq)
+            kt, vt = kf[..., cols, :], vf[..., cols, :]
+            s = _mma_steps(qs, kt.transpose(-1, -2)) * scale2
+            if kv == qb:
+                upper = torch.ones((bq, bq), dtype=torch.bool).triu(1)
+                s = s.masked_fill(upper, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _mma_steps(p.to(torch.bfloat16).float(), vt)
+            m = m_new
+        out[:, :, :, rows] = acc / l
+    return out.flatten(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault", [None, "p_unrounded", "diagonal_dropped"])
+@pytest.mark.parametrize("D", [64, 36])
+def test_mma_arithmetic_within_chip_limits(D, fault):
+    """The bf16 kernel's tensor-core arithmetic (_mma_emulation), at the
+    serving GQA layout (Hq 9, Hkv 3, bq 128) cut to B 1, S 256, passes
+    chip_smoke.ATTN_TOL against the plain version, and each planted fault
+    of chip_smoke.ATTN_FAULTS still breaks the limit: the limit holds a
+    kernel with the card's rounding and still rejects a faulty one."""
+    cs = _chip_smoke()
+    assert fault is None or fault in cs.ATTN_FAULTS["bfloat16"]
+    _, (q, k, v) = _both(_qkv(1, 9, 3, 256, D, seed=D), "bfloat16")
+    scale = float(1.0 / D ** 0.5)
+    got = _mma_emulation(q, k, v, bq=128, scale=scale)
+    want = (tops.attention(q, k, v, bq=128, bk=128) if fault is None else
+            cs.planted_attention(q, k, v, bq=128, bk=128, fault=fault))
+    r, tol = cs.attention_readings(got, want), cs.ATTN_TOL["bfloat16"]
+    passes = r["elem"] <= tol["elem"] and r["l2"] <= tol["l2"]
+    assert passes == (fault is None), r
+    if fault is None:
+        assert not torch.equal(got, want)   # the sums' order does differ
