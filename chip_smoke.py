@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
   2. build every CUDA source of src/repro_torch/kernels/csrc with nvcc
      (one process per source, all at once), print each kernel's
      registers and spills, and hold the host's shared-memory estimates
-     to the kernels' own figures; for the attention kernel, each
+     to the kernels' own figures; every f64 instantiation of the
+     recurrence kernels (fused, on-the-fly, streaming; the 1024-thread
+     ones included) without stack or spills; for the attention kernel, each
      instantiation's registers, local memory, shared memory per block
      and blocks per SM (at most 232 448 bytes; the bf16 kernel at
      bq = 128, D = 64 / 128 without local memory);
@@ -25,7 +27,8 @@ Phases (any failure exits non-zero):
   3b. each grid-FFT stage: one batched cuFFT call over V grids against
      one call per grid, bitwise, with both times;
   3c. the streaming kernels equal the fused ones bit for bit, fp32 and
-     f64, lchunk 8 / 32 / 128 at B = 128 V = 8, with both kernels' times;
+     f64, lchunk 8 / 32 / 128 at B = 128 V = 8, with both kernels' times,
+     and lchunk 1 / 2 at B = 16 V = 3;
   3d. (run after 4b, so that phase 4's peak memory does not hold the
      dense table) the on-the-fly, dense and ragged kernels against their
      plain versions: B = 128 f64 V = 8 on plan(128, impl="dense")'s own table
@@ -230,6 +233,70 @@ def ptxas_summary(name: str, text: str) -> list[str]:
     return rows
 
 
+def recurrence_kernel_info(logs: dict) -> dict:
+    """Phase 2 for the recurrence kernels (dwt_fused.cu, streaming.cu):
+    their shared-memory figures against autotune.estimate_smem_bytes at
+    J = 8 / 256 / 512 / 1024 (L = J / 2), C2 = 16 / 48 / 128 and, for the
+    streaming forward, the l-chunk; and every f64 instantiation's
+    registers, stack frame and spills from its ptxas log, held to no
+    local memory (the tensor-core body keeps its mma fragments in
+    registers; the 1024-thread forward, J > 512, has 64)."""
+    import ctypes
+    from repro_torch.kernels import autotune, runtime
+    fused = runtime.library("dwt_fused").dwt_fused_smem_bytes
+    fused.argtypes = [ctypes.c_int] * 5
+    stream = runtime.library("streaming").streaming_smem_bytes
+    stream.argtypes = [ctypes.c_int] * 6
+    for fn in (fused, stream):
+        fn.restype = ctypes.c_longlong
+    for J in (8, 256, 512, 1024):
+        L = J // 2
+        for C2 in (16, 48, 128):
+            for itemsize in (4, 8):
+                for inv in (0, 1):
+                    figures = [("dwt_fused_smem_bytes", L, L,
+                                fused(J, L, C2, itemsize, inv))]
+                    figures += [("streaming_smem_bytes", lc, L if inv else lc,
+                                 stream(J, L, C2, lc, itemsize, inv))
+                                for lc in (1, 16, L)]
+                    for sym, lchunk, deg, got in figures:
+                        want = autotune.estimate_smem_bytes(
+                            J, itemsize, inverse=bool(inv), C2=C2, L=deg)
+                        if got != want:
+                            fail(f"{sym}: estimate {want} != kernel's {got} "
+                                 f"(J={J}, C2={C2}, itemsize={itemsize}, "
+                                 f"inverse={inv}, lchunk={lchunk})")
+    out = {}
+    for lib_name in ("dwt_fused", "streaming"):
+        for k in ptxas_kernels(logs[lib_name]):
+            hit = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
+                            r"dwt_stream_inv)Id(13__nv_bfloat16|d)?"
+                            r"Li(\d+)E(?:Lb(\d)E)?Li(\d+)E", k["kernel"])
+            if not hit:
+                continue
+            if "stack" not in k:
+                fail(f"{lib_name}: no ptxas figures for {k['kernel']}")
+            bf16 = hit.group(2) == "13__nv_bfloat16"
+            every = hit.group(4) == "1"
+            name = (f"{hit.group(1)}<f64{' bf16' if bf16 else ''} "
+                    f"{hit.group(3)} threads{' every degree' if every else ''}"
+                    f" {hit.group(5)} lanes>")
+            rec = {"registers": k["registers"], "stack_bytes": k["stack"],
+                   "spill_bytes": k["spill_stores"]}
+            out[name] = rec
+            log(f"  {name}: {rec['registers']} registers, stack "
+                f"{rec['stack_bytes']} B, spills {rec['spill_bytes']} B")
+            if rec["stack_bytes"] or rec["spill_bytes"]:
+                fail(f"{name} uses local memory (stack {rec['stack_bytes']}"
+                     f" B, spills {rec['spill_bytes']} B)")
+    if len(out) != 20:
+        fail(f"expected 20 f64 recurrence-kernel instantiations in the "
+             f"ptxas logs, found {len(out)}: {sorted(out)}")
+    log("  shared-memory estimates agree with the recurrence kernels; no "
+        "f64 recurrence kernel uses local memory")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -244,13 +311,13 @@ def visited_rows(m, l0s, tk: int, L: int) -> int:
 
 
 def bound(name, seeds, x, out, rows, dtype_name, win_bytes=0):
-    """(bound_ms, bound_by): what the function must move over the card's
-    memory rate, against its operations over the peak rate.  Bytes: the
-    seeds, cos(beta), the index vectors and the output once each, the
-    window stack once (streaming kernels); the forward reads all of rhs,
-    the inverse only the lhs rows it visits (l from each cluster's
-    start).  Operations: the contraction (2 J C2 per visited row) and the
-    recurrence step (5 J per visited row)."""
+    """(bound_ms, bound_by, operations): what the function must move over
+    the card's memory rate, against its operations over the peak rate.
+    Bytes: the seeds, cos(beta), the index vectors and the output once
+    each, the window stack once (streaming kernels); the forward reads
+    all of rhs, the inverse only the lhs rows it visits (l from each
+    cluster's start).  Operations: the contraction (2 J C2 per visited
+    row) and the recurrence step (5 J per visited row)."""
     K, J = seeds.shape
     C2 = x.shape[-1]
     itemsize = seeds.element_size()
@@ -262,15 +329,31 @@ def bound(name, seeds, x, out, rows, dtype_name, win_bytes=0):
 
 
 def _bound(nbytes, ops, dtype_name):
+    """(bound_ms, bound_by, operations)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), ops
+
+
+def rates(rec):
+    """A timed record's TFLOP/s (its bound's operations over its time),
+    its time over the library call's and over its bound."""
+    rec["tflops"] = rec["ops"] / rec["ms"] / 1e9
+    rec["over_library"] = rec["ms"] / rec["library_ms"] \
+        if rec.get("library_ms") else None
+    rec["over_bound"] = rec["ms"] / rec["bound_ms"]
+    lib = "" if rec["over_library"] is None else \
+        f", {rec['over_library']:.2f}x the library"
+    log(f"    {rec['tflops']:.2f} TFLOP/s{lib}, {rec['over_bound']:.2f}x the "
+        f"bound")
 
 
 def window_bound(seeds, m, win, L, lchunk, dtype_name):
-    """build_windows: reads the seeds, cos(beta) and orders once, writes
-    the window stack once; marches 5 operations per (j, degree) from each
-    cluster's m to the last boundary it stores."""
+    """(bound_ms, bound_by, operations) of build_windows: reads the seeds,
+    cos(beta) and orders once, writes the window stack once; marches 5
+    operations per (j, degree) from each cluster's m to the last boundary
+    it stores."""
     K, J = seeds.shape
     lstop = (L // lchunk - 1) * lchunk
     steps = int((lstop - m.long()).clamp(min=0).sum())
@@ -394,11 +477,12 @@ def fused_case(c: Case, *, time_it: bool):
             rec["ms"] = cuda_ms(run, 5)
             rec["plain_ms"] = cuda_ms(lambda: c.plain(plain, x), 1)
             rec["library_ms"] = cuda_ms(lib, 3)
-            rec["bound_ms"], rec["bound_by"] = bound(name, c.args[0], x, got,
-                                                     c.rows, c.dname)
+            rec["bound_ms"], rec["bound_by"], rec["ops"] = bound(
+                name, c.args[0], x, got, c.rows, c.dname)
             log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
                 f"  library(bmm) {rec['library_ms']:.4f} ms  bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            rates(rec)
         recs[name] = rec
         del got, want
     del table
@@ -426,11 +510,12 @@ def streaming_case(c: Case, lchunk: int, precision: str, *, time_it: bool):
         rec["plain_ms"] = cuda_ms(
             lambda: stk.build_windows_plain(*c.args, **wkw), 1)
         rec["library_ms"] = None          # no library call builds these
-        rec["bound_ms"], rec["bound_by"] = window_bound(
+        rec["bound_ms"], rec["bound_by"], rec["ops"] = window_bound(
             c.args[0], c.args[1], win, c.B, lchunk, c.dname)
         log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
             f"  library none  bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']})")
+        rates(rec)
     recs["build_windows"] = rec
     del win_plain
     wbytes = win.numel() * win.element_size()
@@ -457,11 +542,12 @@ def streaming_case(c: Case, lchunk: int, precision: str, *, time_it: bool):
             rec["ms"] = cuda_ms(run, 5)
             rec["plain_ms"] = cuda_ms(lambda: c.plain(plain, x, win, **kw), 1)
             rec["library_ms"] = cuda_ms(lib, 3)
-            rec["bound_ms"], rec["bound_by"] = bound(
+            rec["bound_ms"], rec["bound_by"], rec["ops"] = bound(
                 name, c.args[0], x, got, c.rows, c.dname, wbytes)
             log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
                 f"  library(bmm) {rec['library_ms']:.4f} ms  bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            rates(rec)
         recs[name] = rec
         del got, want
     del table, win
@@ -613,10 +699,11 @@ def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def table_bound(d, x, out, dtype_name, *, blocks=None):
-    """(bound_ms, bound_by) of a table kernel: the table, the operand and
-    the output once each, 2 J C2 operations per contracted (cluster, l)
-    row; the ragged forward (blocks = (G, tk, tl)) only the table and
-    output rows of its work list's blocks, plus its index vectors."""
+    """(bound_ms, bound_by, operations) of a table kernel: the table, the
+    operand and the output once each, 2 J C2 operations per contracted
+    (cluster, l) row; the ragged forward (blocks = (G, tk, tl)) only the
+    table and output rows of its work list's blocks, plus its index
+    vectors."""
     K, L, J = d.shape
     C2 = x.shape[-1]
     itemsize = d.element_size()
@@ -663,10 +750,11 @@ def _timed(rec, run, plain, lib, bound_):
     rec["ms"] = cuda_ms(run, 5)
     rec["plain_ms"] = cuda_ms(plain, 1)
     rec["library_ms"] = cuda_ms(lib, 3)
-    rec["bound_ms"], rec["bound_by"] = bound_
+    rec["bound_ms"], rec["bound_by"], rec["ops"] = bound_
     log(f"    kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
         f"  library(bmm) {rec['library_ms']:.4f} ms  bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    rates(rec)
 
 
 def table_case(c: TableCase, tl: int, *, time_it: bool):
@@ -1167,11 +1255,12 @@ def big_roundtrip(B: int, mem128: dict) -> dict:
                            tk=t.schedule.tk, perm=perm)
         y = run()
         ms = cuda_ms(run, 1)
-        bms, by = bound(name, seeds, x, y, rows, "float64")
+        bms, by, ops = bound(name, seeds, x, y, rows, "float64")
         full[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                      "tflops": ops / ms / 1e9, "over_bound": ms / bms,
                       "shape": [K, J, 16], "rows": rows}
         log(f"  {name} at B={B} f64 V=1 (K={K}, J={J}): {ms:.2f} ms, bound "
-            f"{bms:.3f} ms ({by})")
+            f"{bms:.3f} ms ({by}), {ops / ms / 1e9:.2f} TFLOP/s")
         del x, y
         torch.cuda.empty_cache()
     return {"roundtrip_abs": abs_err, "roundtrip_rel": rel_err,
@@ -1290,7 +1379,7 @@ def attention_bound(q, k, dname):
     rate (989 TFLOP/s bf16) or the f32 rate outside the tensor cores
     (67 TFLOP/s)."""
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return _bound(nbytes, attention_ops(q), dname)
+    return _bound(nbytes, attention_ops(q), dname)[:2]
 
 
 def plain_attention(q, k, v, *, bq, bk):
@@ -1759,21 +1848,7 @@ def main() -> int:
             if "error" in line:
                 log(f"  [{name}] {line.strip()}")
     import ctypes
-    for lib_name, sym, est in (
-            ("dwt_fused", "dwt_fused_smem_bytes", autotune.estimate_smem_bytes),
-            ("streaming", "streaming_smem_bytes",
-             autotune.estimate_smem_bytes)):
-        fn = getattr(runtime.library(lib_name), sym)
-        fn.argtypes = [ctypes.c_int] * 3
-        fn.restype = ctypes.c_longlong
-        for J in (8, 256, 512, 1024):
-            for itemsize in (4, 8):
-                for inv in (0, 1):
-                    c = fn(J, itemsize, inv)
-                    p = est(J, itemsize, inverse=bool(inv))
-                    if c != p:
-                        fail(f"{sym}: estimate {p} != kernel's {c} (J={J}, "
-                             f"itemsize={itemsize}, inverse={inv})")
+    rec_kernels = recurrence_kernel_info(logs)
     fn = runtime.library("dwt_dense").dwt_dense_smem_bytes
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
@@ -1828,6 +1903,9 @@ def main() -> int:
     for dt in (torch.float64, torch.float32):
         bitwise[str(dt)[6:]] = bitwise_streaming(128, 8, dt, (8, 32, 128),
                                                  seed=1280)
+        # chunks shorter than the f64 body's round of 16 degrees
+        bitwise[f"{str(dt)[6:]}_B16_V3"] = bitwise_streaming(
+            16, 3, dt, (1, 2), seed=160)
 
     log("== 4. main path: plan(128), inverse_batch(8) -> forward_batch")
     counts = {}
@@ -1955,6 +2033,9 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
+            "tflops": main_rec["tflops"],
+            "over_library": main_rec["over_library"],
+            "over_bound": main_rec["over_bound"],
             "library": None if name == "build_windows" else
             "torch.bmm against plan(B, impl='dense')'s (K, L, J) table"
             if name in {**trecs, **orecs} else
@@ -1964,7 +2045,8 @@ def main() -> int:
             "at": {k: main_rec[k] for k in at_keys if k in main_rec},
             "more": {k: {kk: v.get(kk) for kk in
                          ("max_err_vs_plain", "ms", "plain_ms", "library_ms",
-                          "bound_ms", "bound_by", "fused_ms", "B", "dtype",
+                          "bound_ms", "bound_by", "tflops", "over_library",
+                          "over_bound", "fused_ms", "B", "dtype",
                           "V", "lchunk", "precision", "tl", "shape")
                          if kk in v}
                      for k, v in extra.items()},
@@ -1979,6 +2061,7 @@ def main() -> int:
                "fft_lanes": fft_lanes, "streaming_equals_fused": bitwise,
                "bf16_planted_faults_b128_f32": planted,
                "tol_bf16": TOL_BF16,
+               "recurrence_kernels": rec_kernels,
                "attention": attn, "attention_kernels": attn_kernels,
                "attn_tol": ATTN_TOL,
                "serve_path": serve, "logit_tol": LOGIT_TOL,

@@ -5,7 +5,8 @@
     reference's accuracy gates, copied as they are.
   * :func:`estimate_smem_bytes` / :func:`dense_smem_bytes` -- the shared
     memory one block of the recurrence kernels (fused, streaming,
-    on-the-fly; ``dwt_fused_smem_bytes`` in ``csrc/dwt_fused.cu``) and of
+    on-the-fly; ``dwt_fused_smem_bytes`` in ``csrc/dwt_fused.cu``; its
+    lane slice is :func:`lane_slice`) and of
     the table kernels (dense, ragged; ``dwt_dense_smem_bytes`` in
     ``csrc/dwt_dense.cu``) asks for, checked against the 227 KB a Hopper
     block may use.  They replace the TPU's VMEM estimate and 12 MiB
@@ -25,8 +26,9 @@ import torch
 __all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
            "PRECISION_BOUND_EXTRAPOLATED", "FP32_ROUNDTRIP_BOUNDS",
            "SMEM_LIMIT_BYTES", "V_CANDIDATES", "V_RULE",
-           "estimate_smem_bytes", "dense_smem_bytes", "table_bytes",
-           "window_bytes", "estimate_batch_bytes",
+           "lane_slice", "block_threads", "estimate_smem_bytes",
+           "dense_smem_bytes", "table_bytes", "window_bytes",
+           "estimate_batch_bytes",
            "dense_table_host_bytes", "device_memory_bytes",
            "static_lane_width", "static_precision", "static_lchunk"]
 
@@ -63,26 +65,63 @@ FP32_ROUNDTRIP_BOUNDS = {
 # Shared memory one block may use on Hopper (H100/H200): 227 KB.
 SMEM_LIMIT_BYTES = 232448
 
-# Kernel geometry, as in csrc/dwt_fused.cu: kWarp, kCS, kLT.
+# Kernel geometry, as in csrc/dwt_block.cuh: kWarp; f32 kCS lanes and
+# kLT degrees per round; f64 kMT degrees per round, kPad doubles of row
+# padding, kCS1024 lanes at J > 512.
 _WARP, _CS, _LT = 32, 32, 8
+_MT, _PAD, _CS1024 = 16, 4, 8
 
 V_CANDIDATES = (1, 2, 4, 8)
 V_RULE = ("widest V in (1, 2, 4, 8) whose batch buffers "
           "(estimate_batch_bytes) fit half the device memory")
 
 
-def estimate_smem_bytes(J: int, itemsize: int, *, inverse: bool) -> int:
-    """Dynamic shared memory of one fused-kernel block: kLT staged Wigner
-    rows over the padded J, the forward's per-warp partial sums (the
-    inverse's staged lhs rows instead) and kLT (A, mu, C) triples.  The
-    streaming and on-the-fly kernels run the same block body
-    (``csrc/dwt_block.cuh``): the same figure, whatever lchunk and
-    precision (``streaming_smem_bytes`` in ``csrc/streaming.cu``; the
-    on-the-fly kernels are instantiations in ``csrc/dwt_fused.cu``)."""
+def lane_slice(J: int, C2: int, itemsize: int, *,
+               inverse: bool = False) -> int:
+    """Output lanes of one recurrence-kernel block (``lane_slice`` in
+    ``csrc/dwt_block.cuh``): f64 32, or 16 when C2 <= 16, and 8 in the
+    1024-thread forward (J > 512); f32 always 32."""
+    if itemsize != 8:
+        return _CS
+    if J > 512 and not inverse:
+        return _CS1024
+    return 16 if C2 <= 16 else 32
+
+
+def block_threads(J: int, itemsize: int, *, inverse: bool) -> int:
+    """Threads of one recurrence-kernel block (``block_threads``): one per
+    j in whole warps; the f64 inverse splits J > 512 into blocks of 512."""
+    nj = -(-J // _WARP) * _WARP
+    return 512 if itemsize == 8 and inverse and nj > 512 else nj
+
+
+def estimate_smem_bytes(J: int, itemsize: int, *, inverse: bool,
+                        C2: int = 32, L: int | None = None) -> int:
+    """Dynamic shared memory of one recurrence-kernel block at (J, C2) that
+    marches L degrees (default J // 2 = B; a streaming forward block marches
+    one l-chunk).  f64: kMT = 16 staged Wigner rows over the block's
+    threads (:func:`block_threads`), in two buffers up to 512 threads; the
+    inverse's double-buffered lhs rows (2 x kMT x (lane slice + 4)), the
+    forward's per-warp partial sums (warps x kMT x (lane slice + 2)) or, at
+    1024 threads, its copy of its rhs slice (J x lane slice); L (A, mu, C)
+    triples.  f32: kLT = 8 staged rows, the forward's per-warp
+    partial sums (the inverse's staged lhs rows instead) and kLT triples.
+    The fused, streaming and on-the-fly kernels run the same block body
+    (``csrc/dwt_block.cuh``; ``dwt_fused_smem_bytes`` /
+    ``streaming_smem_bytes``; the on-the-fly kernels are instantiations in
+    ``csrc/dwt_fused.cu``).  The default C2 takes the widest lane slice J
+    allows."""
     nw = -(-J // _WARP)
-    rows = _LT * nw * _WARP
+    nj = nw * _WARP
+    if itemsize == 8:
+        cs = lane_slice(J, C2, itemsize, inverse=inverse)
+        nt = block_threads(J, itemsize, inverse=inverse)
+        rows = (2 if nt <= 512 else 1) * _MT * (nt + _PAD)
+        other = 2 * _MT * (cs + _PAD) if inverse else \
+            (nt // _WARP * _MT * (cs + 2) if nt <= 512 else nt * cs)
+        return 8 * (rows + other) + 3 * 8 * (J // 2 if L is None else L)
     extra = _LT * _CS if inverse else nw * _LT * _CS
-    return itemsize * (rows + extra) + 3 * itemsize * _LT
+    return itemsize * (_LT * nj + extra) + 3 * itemsize * _LT
 
 
 # Block geometry of csrc/dwt_dense.cu: 16 x 16 threads, kKC = 16

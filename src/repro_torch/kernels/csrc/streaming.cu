@@ -19,30 +19,33 @@
 //
 // Every kernel here marches the recurrence through recurrence.cuh's
 // wigner_coeffs / wigner_step and nothing else, and contracts through
-// dwt_block.cuh's fwd_rows / inv_rows, as the fused kernels do.  The
-// window builder stores exactly the state the fused kernels carry, so in
-// fp32 / f64 the chunked results equal dwt_fused / idwt_fused bit for bit.
+// dwt_block.cuh's block body, as the fused kernels do.  The window
+// builder stores exactly the state the fused kernels carry, so in fp32 /
+// f64 the chunked results equal dwt_fused / idwt_fused bit for bit.
 //
 // What bounds them: as dwt_fused.cu (bytes, at B = 128 f64 V = 8), plus
-// the window stack read once.  This first version re-reads the rhs column
-// once per chunk in the forward (each (cluster, lane slice, chunk) is its
-// own block, so chunks of one cluster run in parallel), and recomputes
-// the window march the fused kernels do anyway.
+// the window stack read once.  The forward re-reads the rhs slice once
+// per chunk (each (cluster, lane slice, chunk) is its own block, so
+// chunks of one cluster run in parallel) and pays a block's set-up (its
+// coefficient triples, its rhs fragments, the first round's march) per
+// chunk; the inverse recomputes the window march the fused kernels do
+// anyway.  Measured at lchunk 16 (chip_smoke.py phase 3, NVIDIA H100
+// 80GB HBM3, 700.00 W): 3.978 / 2.182 ms, 3.77 / 2.59x the byte bound.
 //
 // Design.
 //   * build_windows: one block per cluster, one thread per j; coefficients
-//     staged kLT degrees at a time in shared memory, as in fwd_rows.  The
-//     march starts at the cluster's m (the state is zero below it, as the
-//     fused kernels start there too) and stores (d_prev, d_cur) at each
-//     chunk boundary, rounded once on store under bf16.
-//   * dwt_streaming: grid (K, C2 / 32, nL).  Block (k, slice, lc) loads
-//     its state from win[lc] and runs l = max(first degree, lc lchunk) ..
-//     (lc + 1) lchunk - 1, writing zero rows below; chunks write disjoint
-//     rows, so they need no order.
-//   * idwt_streaming: grid (K, C2 / 32).  One block walks the chunks in
-//     ascending l, reloading the state from each window, and keeps g's
-//     lane slice in registers across all of them: the sums run in the
-//     same order as idwt_fused's.  No atomics.
+//     staged kLT degrees at a time in shared memory, as in the f32 body.
+//     The march starts at the cluster's m (the state is zero below it, as
+//     the fused kernels start there too) and stores (d_prev, d_cur) at
+//     each chunk boundary, rounded once on store under bf16.
+//   * dwt_streaming: grid (K, C2 / lane slice, nL).  Block (k, slice, lc)
+//     loads its state from win[lc] and runs l = max(first degree,
+//     lc lchunk) .. (lc + 1) lchunk - 1, writing zero rows below; chunks
+//     write disjoint rows, so they need no order.
+//   * idwt_streaming: grid (K, C2 / lane slice[, j halves]).  One block
+//     walks the chunks in ascending l, reloading the state from each
+//     window, and keeps g's lane slice in registers across all of them:
+//     the sums run in the same order as idwt_fused's.  No atomics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,7 +100,7 @@ build_windows_kernel(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   }
 }
 
-template <typename T, typename S, int kMaxThreads>
+template <typename T, typename S, int kMaxThreads, int kCSl>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 dwt_stream_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
                const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
@@ -105,10 +108,9 @@ dwt_stream_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
                const int* __restrict__ perm, const S* __restrict__ win,
                T* __restrict__ out, int K, int J, int L, int C2, int tk, int lchunk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<T> sm(smem, blockDim.x / kWarp);
   const int k = blockIdx.x;
   const int row = perm ? perm[k] : k;
-  const int c0 = blockIdx.y * kCS;
+  const int c0 = blockIdx.y * kCSl;
   const int lc = blockIdx.z;
   const int base = lc * lchunk, lend = base + lchunk;
   const int j = threadIdx.x;
@@ -116,21 +118,21 @@ dwt_stream_fwd(const T* __restrict__ seeds, const int* __restrict__ m_arr,
   const int lbeg = max(first_degree(l0s[k / tk], m, L), base);
 
   T* out_k = out + size_t(row) * L * C2;
-  zero_rows(out_k, base, min(lbeg, lend), C2, c0);
+  zero_rows(out_k, base, min(lbeg, lend), C2, c0, kCSl);
   if (lbeg >= lend) return;
 
-  T r[kWarp];
-  load_rhs(r, rhs + size_t(row) * J * C2, J, C2, c0);
   const bool j_ok = j < J;
   const T seed = j_ok ? seeds[size_t(k) * J + j] : T(0);
   const T cb = j_ok ? cos_beta[j] : T(0);
   T d_prev = j_ok ? load_state<T, S>(win[win_index(lc, 0, k, j, K, J)]) : T(0);
   T d_cur = j_ok ? load_state<T, S>(win[win_index(lc, 1, k, j, K, J)]) : T(0);
   constexpr bool kBf16 = sizeof(S) == 2;
-  fwd_rows<T, kBf16>(lbeg, lend, m, mp, cb, seed, d_prev, d_cur, r, sm, out_k, C2, c0);
+  fwd_block<T, kCSl, kBf16, (kMaxThreads <= 512)>(lbeg, lend, m, mp, cb, seed, d_prev, d_cur,
+                                                rhs + size_t(row) * J * C2, out_k, J, C2, c0,
+                                                smem);
 }
 
-template <typename T, typename S, int kMaxThreads>
+template <typename T, typename S, int kMaxThreads, int kCSl>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 dwt_stream_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
                const int* __restrict__ mp_arr, const T* __restrict__ cos_beta,
@@ -138,30 +140,41 @@ dwt_stream_inv(const T* __restrict__ seeds, const int* __restrict__ m_arr,
                const int* __restrict__ perm, const S* __restrict__ win,
                T* __restrict__ g, int K, int J, int L, int C2, int tk, int lchunk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const InvSmem<T> sm(smem, blockDim.x / kWarp);
   const int k = blockIdx.x;
   const int row = perm ? perm[k] : k;
-  const int c0 = blockIdx.y * kCS;
-  const int j = threadIdx.x;
+  const int c0 = blockIdx.y * kCSl;
+  const int j0 = blockIdx.z * blockDim.x;  // the block's j half (f64 past J = 512)
+  const int j = j0 + threadIdx.x;
   const bool j_ok = j < J;
   const int m = m_arr[k], mp = mp_arr[k];
   const int lbeg = first_degree(l0s[k / tk], m, L);
 
-  T acc[kWarp];
-#pragma unroll
-  for (int i = 0; i < kWarp; ++i) acc[i] = T(0);
+  InvBody<T, kCSl, (kMaxThreads <= 512)> body(smem);
   const T seed = j_ok ? seeds[size_t(k) * J + j] : T(0);
   const T cb = j_ok ? cos_beta[j] : T(0);
-  const T* lhs_k = lhs + size_t(row) * L * C2;
+  const auto from_window = [&](int lc, T& d_prev, T& d_cur) {
+    d_prev = j_ok ? load_state<T, S>(win[win_index(lc, 0, k, j, K, J)]) : T(0);
+    d_cur = j_ok ? load_state<T, S>(win[win_index(lc, 1, k, j, K, J)]) : T(0);
+  };
   constexpr bool kBf16 = sizeof(S) == 2;
-  for (int lc = lbeg / lchunk; lc * lchunk < L; ++lc) {
-    const int base = lc * lchunk;
-    T d_prev = j_ok ? load_state<T, S>(win[win_index(lc, 0, k, j, K, J)]) : T(0);
-    T d_cur = j_ok ? load_state<T, S>(win[win_index(lc, 1, k, j, K, J)]) : T(0);
-    inv_rows<T, kBf16>(max(lbeg, base), base + lchunk, m, mp, cb, seed, d_prev, d_cur, acc,
-                       sm, lhs_k, C2, c0);
+  body.template run<kBf16>(lbeg, L, lchunk, from_window, m, mp, cb, seed,
+                           lhs + size_t(row) * L * C2, C2, c0);
+  body.store(g + (size_t(row) * J + j0) * C2, J - j0, C2, c0);
+}
+
+// The instantiation a launch runs (as pick_kernel in dwt_fused.cu).
+template <typename T, typename S>
+auto pick_kernel(bool inverse, int J, int C2) {
+  if constexpr (is_f64<T>) {
+    const bool narrow = lane_slice<T>(J, C2, inverse) == 16;
+    if (inverse)
+      return narrow ? dwt_stream_inv<T, S, 512, 16> : dwt_stream_inv<T, S, 512, 32>;
+    if (J > 512) return dwt_stream_fwd<T, S, 1024, kCS1024>;
+    return narrow ? dwt_stream_fwd<T, S, 512, 16> : dwt_stream_fwd<T, S, 512, 32>;
+  } else {
+    if (inverse) return J > 512 ? dwt_stream_inv<T, S, 1024, kCS> : dwt_stream_inv<T, S, 512, kCS>;
+    return J > 512 ? dwt_stream_fwd<T, S, 1024, kCS> : dwt_stream_fwd<T, S, 512, kCS>;
   }
-  store_acc(acc, g + size_t(row) * J * C2, J, C2, c0);
 }
 
 template <typename T, typename S>
@@ -169,13 +182,14 @@ int dispatch(bool inverse, const void* seeds, const void* m, const void* mp, con
              const void* x, const void* l0s, const void* perm, const void* win, void* y,
              int K, int J, int L, int C2, int tk, int lchunk, void* stream) {
   if (K <= 0 || L <= 0 || C2 <= 0 || tk <= 0 || lchunk <= 0 || L % lchunk ||
-      L / lchunk > 65535)
+      L / lchunk > 65535 || J <= 0 || J > 1024)
     return int(cudaErrorInvalidValue);
-  const int slices = (C2 + kCS - 1) / kCS;
-  const auto k512 = inverse ? dwt_stream_inv<T, S, 512> : dwt_stream_fwd<T, S, 512>;
-  const auto k1024 = inverse ? dwt_stream_inv<T, S, 1024> : dwt_stream_fwd<T, S, 1024>;
+  const int cs = lane_slice<T>(J, C2, inverse);
+  const int slices = (C2 + cs - 1) / cs;
   return int(launch_block<T>(
-      k512, k1024, inverse, inverse ? dim3(K, slices) : dim3(K, slices, L / lchunk), J,
+      pick_kernel<T, S>(inverse, J, C2), inverse,
+      inverse ? dim3(K, slices, j_blocks<T>(J, true)) : dim3(K, slices, L / lchunk), J,
+      inverse ? L : lchunk, C2,
       static_cast<cudaStream_t>(stream), static_cast<const T*>(seeds),
       static_cast<const int*>(m), static_cast<const int*>(mp), static_cast<const T*>(cb),
       static_cast<const T*>(x), static_cast<const int*>(l0s), static_cast<const int*>(perm),
@@ -226,11 +240,14 @@ REPRO_STREAMING_ENTRY(f64, double, fp32, double)
 REPRO_STREAMING_ENTRY(f32, float, bf16, __nv_bfloat16)
 REPRO_STREAMING_ENTRY(f64, double, bf16, __nv_bfloat16)
 
-// Dynamic shared memory a dwt / idwt_streaming launch asks for, in bytes
-// (the host-side estimate in kernels/autotune.py must agree).
-long long streaming_smem_bytes(int J, int itemsize, int inverse) {
-  if (itemsize == 4) return (long long)(inverse ? inv_smem_bytes<float>(J) : fwd_smem_bytes<float>(J));
-  return (long long)(inverse ? inv_smem_bytes<double>(J) : fwd_smem_bytes<double>(J));
+// Dynamic shared memory a dwt / idwt_streaming launch at (J, L, C2,
+// lchunk) asks for, in bytes (the host-side estimate in
+// kernels/autotune.py must agree): the forward's blocks march one
+// l-chunk, the inverse's all of L.
+long long streaming_smem_bytes(int J, int L, int C2, int lchunk, int itemsize, int inverse) {
+  const int degrees = inverse ? L : lchunk;
+  if (itemsize == 4) return (long long)block_smem_bytes<float>(J, degrees, C2, inverse != 0);
+  return (long long)block_smem_bytes<double>(J, degrees, C2, inverse != 0);
 }
 
 }  // extern "C"

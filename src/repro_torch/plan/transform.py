@@ -136,8 +136,10 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
         source = "explicit"
     smem = 0
     if impl in ("fused", "onthefly"):
-        smem = max(autotune.estimate_smem_bytes(2 * B, itemsize, inverse=inv)
-                   for inv in (False, True))
+        smem = max(autotune.estimate_smem_bytes(
+            2 * B, itemsize, inverse=inv, C2=V * 16,
+            L=lchunk if lchunk is not None and not inv else B)
+            for inv in (False, True))
     elif impl in ("dense", "ragged"):
         spans = (tl if impl == "ragged" else B, 2 * B)
         smem = max(autotune.dense_smem_bytes(sp, V * 16, itemsize)
