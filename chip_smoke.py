@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
      registers and spills, and hold the host's shared-memory estimates
      to the kernels' own figures; every f64 instantiation of the
      recurrence kernels (fused, on-the-fly, streaming; the 1024-thread
-     ones included) without stack or spills; for the attention kernel, each
+     ones included) and of the table forward (the tensor-core body and
+     the scalar body it is checked against) without stack or spills;
+     for the attention kernel, each
      instantiation's registers, local memory, shared memory per block
      and blocks per SM (at most 232 448 bytes; the bf16 kernel at
      bq = 128, D = 64 / 128 without local memory);
@@ -36,7 +38,11 @@ Phases (any failure exits non-zero):
      B = 64 f32 V = 8, and edge shapes B = 4..32 (J < 32, C2 = 16..48,
      tl 2 / 4 / B); kernel, plain and torch.bmm times beside each bound,
      and the on-the-fly kernels against the fused ones (torch.equal and
-     both times) at B = 128 f64 and B = 64 f32;
+     both times) at B = 128 f64 and B = 64 f32; at every f64 shape the
+     tensor-core dwt_dense / dwt_ragged torch.equal to the scalar FMA
+     body (the _fma check symbols, timed beside them at B = 128), ragged
+     == dense on the visited rows, lane k == the single transform, and an
+     irregular work list written exactly on its rows;
   4. the main path: repro_torch.plan(128) at its defaults,
      inverse_batch of 8 coefficient sets then forward_batch, held to the
      paper's Table-1 roundtrip metric and to the single transforms;
@@ -221,6 +227,7 @@ def ptxas_summary(name: str, text: str) -> list[str]:
         short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
                           r"dwt_stream_inv|build_windows_kernel|"
                           r"onthefly_fwd|onthefly_inv|dense_kernel|"
+                          r"dense_fwd_dmma|"
                           r"folded_attention_bf16_kernel|"
                           r"folded_attention_scalar_kernel)"
                           r"I(.*?)EEv", k["kernel"])
@@ -294,6 +301,65 @@ def recurrence_kernel_info(logs: dict) -> dict:
              f"ptxas logs, found {len(out)}: {sorted(out)}")
     log("  shared-memory estimates agree with the recurrence kernels; no "
         "f64 recurrence kernel uses local memory")
+    return out
+
+
+def table_kernel_info(log_text: str) -> dict:
+    """Phase 2 for the table kernels (dwt_dense.cu): their shared-memory
+    figures (``dwt_dense_smem_bytes``: the scalar body's static figure,
+    the f64 forward's static plus dynamic) against
+    autotune.dense_smem_bytes at spans 2..256, C2 = 16 / 48 / 128, f32 and
+    f64, forward and inverse; and every f64 forward instantiation's
+    registers, stack frame and spills from its ptxas log -- the DMMA
+    body (dense_fwd_dmma, 16 / 64 lanes, dense and ragged) and the scalar
+    body's (dense_kernel<double, ..., forward>, the bit reference) --
+    held to no local memory."""
+    import ctypes
+    from repro_torch.kernels import autotune, runtime
+    fn = runtime.library("dwt_dense").dwt_dense_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for span in (2, 16, 17, 128, 256):
+        for C2 in (16, 48, 128):
+            for itemsize in (4, 8):
+                for inv in (0, 1):
+                    c = fn(span, C2, itemsize, inv)
+                    p = autotune.dense_smem_bytes(span, C2, itemsize,
+                                                  inverse=bool(inv))
+                    if c != p:
+                        fail(f"dwt_dense_smem_bytes: estimate {p} != "
+                             f"kernel's {c} (span={span}, C2={C2}, "
+                             f"itemsize={itemsize}, inverse={inv})")
+    out = {}
+    for k in ptxas_kernels(log_text):
+        hit = re.search(r"dense_fwd_dmmaILi(\d+)ELb(\d)E", k["kernel"])
+        name = None
+        if hit:
+            name = (f"dense_fwd_dmma<{2 * int(hit.group(1))} lanes"
+                    f"{' ragged' if hit.group(2) == '1' else ''}>")
+        hit = re.search(r"dense_kernelIdLi(\d)ELi(\d)ELb0ELb(\d)E",
+                        k["kernel"])
+        if hit:
+            name = (f"dense_kernel<f64 {16 * int(hit.group(1))} x "
+                    f"{16 * int(hit.group(2))}"
+                    f"{' ragged' if hit.group(3) == '1' else ''}>")
+        if name is None:
+            continue
+        if "stack" not in k:
+            fail(f"dwt_dense: no ptxas figures for {k['kernel']}")
+        rec = {"registers": k["registers"], "stack_bytes": k["stack"],
+               "spill_bytes": k["spill_stores"]}
+        out[name] = rec
+        log(f"  {name}: {rec['registers']} registers, stack "
+            f"{rec['stack_bytes']} B, spills {rec['spill_bytes']} B")
+        if rec["stack_bytes"] or rec["spill_bytes"]:
+            fail(f"{name} uses local memory (stack {rec['stack_bytes']}"
+                 f" B, spills {rec['spill_bytes']} B)")
+    if len(out) != 12:
+        fail(f"expected 12 f64 table-forward instantiations in the ptxas "
+             f"log, found {len(out)}: {sorted(out)}")
+    log("  shared-memory estimates agree with the table kernels; no f64 "
+        "table-forward kernel uses local memory")
     return out
 
 
@@ -757,10 +823,79 @@ def _timed(rec, run, plain, lib, bound_):
     rates(rec)
 
 
+def table_raw(symbol, d, rhs, *, meta=None, kk=None, ll=None, tl=None,
+              out=None):
+    """One launch of a C entry point of csrc/dwt_dense.cu on rhs, outside
+    the wrappers (counted by no LAUNCHES): ``symbol`` a dense forward
+    (d, rhs, out) or a ragged one on meta's perm and work list (or kk,
+    ll) at tk = 8; ``out`` defaults to torch.empty."""
+    import torch
+    from repro_torch.kernels import runtime
+    K, L, J = d.shape
+    C2 = rhs.shape[-1]
+    if out is None:
+        out = torch.empty((K, L, C2), dtype=d.dtype, device=d.device)
+    if "ragged" in symbol:
+        kk = meta.kk_t if kk is None else kk
+        ll = meta.ll_t if ll is None else ll
+        runtime.launch("dwt_dense", symbol, symbol, d.device,
+                       [d, rhs, kk, ll, meta.perm_t, out],
+                       [kk.shape[0], L, J, C2, 8, tl])
+    else:
+        runtime.launch("dwt_dense", symbol, symbol, d.device, [d, rhs, out],
+                       [K, L, J, C2])
+    return out
+
+
+def dmma_gates(c: TableCase, meta, seen, tl: int, dense, ragged) -> dict:
+    """The f64 forward on the tensor cores (dense, ragged: the wrappers'
+    outputs on c) against the scalar FMA body (the _fma check symbols),
+    torch.equal; ragged == dense on the rows the work list visits; lane
+    k == the single transform (V > 1); and an irregular work list (every
+    third entry dropped, one repeated, order reversed) written exactly on
+    its rows into a NaN-filled output, the rest left NaN.  Any
+    difference fails."""
+    import torch
+    from repro_torch.kernels import dwt as dk, dwt_fused as dfk, runtime
+
+    K, L, J, C2 = c.shape
+    tag = f"{c.tag} tl={tl}"
+    gates = {
+        "dwt_dense == dwt_dense_f64_fma": torch.equal(
+            dense, table_raw("dwt_dense_f64_fma", c.d, c.rhs)),
+        "dwt_ragged == dwt_ragged_f64_fma (visited rows)": torch.equal(
+            ragged[seen], table_raw("dwt_ragged_f64_fma", c.d, c.rhs,
+                                    meta=meta, tl=tl)[seen]),
+        "dwt_ragged == dwt_dense (visited rows)": torch.equal(
+            ragged[seen], dense[seen])}
+    if c.V > 1:
+        gates["lane k == single transform"] = torch.equal(torch.cat(
+            [table_raw("dwt_dense_f64", c.d, grp)
+             for grp in runtime.lane_groups(c.rhs)], -1), dense)
+    G = len(meta.kk)
+    keep = ([g for g in range(G) if g % 3 != 1] + [0])[::-1]
+    kk, ll = meta.kk_t[keep].contiguous(), meta.ll_t[keep].contiguous()
+    seen2 = dfk.unpermute_rows(dk.visited_mask(kk, ll, K=K, L=L, tk=8,
+                                               tl=tl), meta.perm_t)
+    out = table_raw("dwt_ragged_f64", c.d, c.rhs, meta=meta, kk=kk, ll=ll,
+                    tl=tl, out=torch.full((K, L, C2), float("nan"),
+                                          dtype=c.dtype, device=c.d.device))
+    gates["irregular work list: its rows == dwt_dense, the rest unwritten"] \
+        = torch.equal(out[seen2], dense[seen2]) \
+        and bool(out[~seen2].isnan().all())
+    for what, ok in gates.items():
+        log(f"  {what} {tag}: {ok}")
+        if not ok:
+            fail(f"{what} fails at {tag}")
+    return {k: bool(v) for k, v in gates.items()}
+
+
 def table_case(c: TableCase, tl: int, *, time_it: bool):
     """dwt_dense / idwt_dense / dwt_ragged (tl) against their plain
     versions on c's table; the ragged output is compared on the blocks
-    its work list visits (the rest is undefined)."""
+    its work list visits (the rest is undefined).  In f64 the forward
+    kernels also pass :func:`dmma_gates`, and timed, the scalar FMA
+    body's time (``fma_ms``) stands beside theirs."""
     import torch
     from repro_torch.kernels import dwt as dk, dwt_fused as dfk, ops
 
@@ -772,22 +907,31 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
     log(f"  dwt_ragged {c.tag} tl={tl}: work list G={G} blocks of the "
         f"dense grid's {meta.n_dense} ({G / meta.n_dense:.3f})")
     zero = torch.zeros((), dtype=c.dtype, device=c.d.device)
+    f64 = c.dtype == torch.float64
     recs = {}
     kw = dict(tk=8, tl=tl, tj=J)
-    for name, x, run, plain, lib in (
+    for name, x, run, plain, lib, fma in (
             ("dwt_dense", c.rhs, lambda: dk.dwt_dense(c.d, c.rhs, **kw),
              lambda: dk.dwt_dense_plain(c.d, c.rhs),
-             lambda: torch.bmm(c.d, c.rhs)),
+             lambda: torch.bmm(c.d, c.rhs),
+             lambda: table_raw("dwt_dense_f64_fma", c.d, c.rhs)),
             ("idwt_dense", c.lhs, lambda: dk.idwt_dense(c.d, c.lhs, **kw),
              lambda: dk.idwt_dense_plain(c.d, c.lhs),
-             lambda: torch.bmm(c.d.transpose(1, 2), c.lhs)),
+             lambda: torch.bmm(c.d.transpose(1, 2), c.lhs), None),
             ("dwt_ragged", c.rhs,
              lambda: dk.dwt_ragged(c.d, c.rhs, meta.kk_t, meta.ll_t,
                                    perm=meta.perm_t, **kw),
              lambda: dk.dwt_ragged_plain(c.d, c.rhs, meta.kk_t, meta.ll_t,
                                          tk=8, tl=tl, perm=meta.perm_t),
-             lambda: torch.bmm(c.d, c.rhs))):
+             lambda: torch.bmm(c.d, c.rhs),
+             lambda: table_raw("dwt_ragged_f64_fma", c.d, c.rhs, meta=meta,
+                               tl=tl))):
         got, want = run(), plain()
+        if f64 and name == "dwt_dense":
+            dense = got
+        if f64 and name == "dwt_ragged":
+            recs["dmma_gates"] = dmma_gates(c, meta, seen, tl, dense, got)
+            del dense
         if name == "dwt_ragged":
             got = torch.where(seen[:, :, None], got, zero)
         rec = compare(name, f"{c.tag} tl={tl}", got, want, c.dname)
@@ -798,6 +942,11 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
             _timed(rec, run, plain, lib, table_bound(
                 c.d, x, got, c.dname,
                 blocks=(G, 8, tl) if name == "dwt_ragged" else None))
+            if f64 and fma is not None:
+                rec["fma_ms"] = cuda_ms(fma, 5)
+                log(f"    scalar FMA body (the bit reference) "
+                    f"{rec['fma_ms']:.4f} ms: tensor cores / FMA = "
+                    f"{rec['ms'] / rec['fma_ms']:.3f}")
         recs[name] = rec
         del got, want
     torch.cuda.empty_cache()
@@ -1755,7 +1904,8 @@ def serve_path() -> dict:
     return res
 
 
-_BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel")),
+_BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel",
+                             "dense_fwd_dmma")),
             ("cuFFT", ("fft",)),
             ("gather / scatter", ("index", "gather", "scatter")),
             ("cat / stack", ("Cat",)))
@@ -1834,7 +1984,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     log("== 2. build")
-    from repro_torch.kernels import autotune, runtime
+    from repro_torch.kernels import runtime
     t0 = time.perf_counter()
     logs = runtime.build_all(verbose=True)
     build_s = time.perf_counter() - t0
@@ -1847,19 +1997,8 @@ def main() -> int:
         for line in text.splitlines():
             if "error" in line:
                 log(f"  [{name}] {line.strip()}")
-    import ctypes
     rec_kernels = recurrence_kernel_info(logs)
-    fn = runtime.library("dwt_dense").dwt_dense_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_longlong
-    for span in (2, 16, 17, 128, 256):
-        for C2 in (16, 48, 128):
-            for itemsize in (4, 8):
-                c = fn(span, C2, itemsize)      # as compiled (static)
-                p = autotune.dense_smem_bytes(span, C2, itemsize)
-                if c != p:
-                    fail(f"dwt_dense_smem_bytes: estimate {p} != kernel's "
-                         f"{c} (span={span}, C2={C2}, itemsize={itemsize})")
+    table_kernels = table_kernel_info(logs["dwt_dense"])
     log("  shared-memory estimates agree with every library")
     attn_kernels = attention_kernel_info(logs["folded_attention"])
 
@@ -2023,6 +2162,8 @@ def main() -> int:
             extra["bf16_B128_f32_lchunk16"] = srecs_bf16c[name]
         if name in r512["kernels_full_shape"]:
             extra["B512_full_f64_V1"] = r512["kernels_full_shape"][name]
+        if "fma_ms" in main_rec:    # the scalar FMA body, the bit reference
+            extra["scalar_fma_body"] = {"ms": main_rec["fma_ms"]}
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": main_counts[name],
@@ -2062,6 +2203,8 @@ def main() -> int:
                "bf16_planted_faults_b128_f32": planted,
                "tol_bf16": TOL_BF16,
                "recurrence_kernels": rec_kernels,
+               "table_kernels": table_kernels,
+               "dmma_gates_b128": trecs["dmma_gates"],
                "attention": attn, "attention_kernels": attn_kernels,
                "attn_tol": ATTN_TOL,
                "serve_path": serve, "logit_tol": LOGIT_TOL,

@@ -5,7 +5,9 @@ Port of ``repro/kernels/dwt.py`` (the Pallas TPU kernels ``dwt_dense``,
 ``idwt_dense`` and ``dwt_ragged``).  The kernels are in
 ``csrc/dwt_dense.cu`` (see its header for the design and what bounds
 them): one tiled contraction against the (K, L, J) table d, used three
-ways.
+ways.  The f64 forward (dense and ragged) runs on the FP64 tensor cores,
+everything else on the FMA pipes; both give one ascending fma chain per
+output element, so the two f64 forward bodies agree bit for bit.
 
     dwt_dense   out[k] = d[k] rhs[k]                       (K, L, C2)
     idwt_dense  g[k]   = d[k]^T lhs[k]                     (K, J, C2)
@@ -133,6 +135,12 @@ def _check(name, d, x, *, inverse: bool):
         raise ValueError(f"{name}: operand must be contiguous {d.dtype} "
                          f"(K={K}, {A}, C2) on {d.device}, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
+    # the f64 forward copies 16-byte pairs (J and C2 are even)
+    if d.dtype == torch.float64 and not inverse and (
+            d.data_ptr() % 16 or x.data_ptr() % 16 or J % 2
+            or x.shape[-1] % 2):
+        raise ValueError(f"{name}: the f64 forward needs d and the operand "
+                         f"on 16-byte boundaries and even J, C2")
     return K, L, J, x.shape[-1]
 
 

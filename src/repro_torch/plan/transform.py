@@ -141,9 +141,10 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
             L=lchunk if lchunk is not None and not inv else B)
             for inv in (False, True))
     elif impl in ("dense", "ragged"):
-        spans = (tl if impl == "ragged" else B, 2 * B)
-        smem = max(autotune.dense_smem_bytes(sp, V * 16, itemsize)
-                   for sp in spans)
+        spans = ((tl if impl == "ragged" else B, False), (2 * B, True))
+        smem = max(autotune.dense_smem_bytes(sp, V * 16, itemsize,
+                                             inverse=inv)
+                   for sp, inv in spans)
     return Schedule(impl, V, _DEF_TK, tl, source, smem,
                     autotune.estimate_batch_bytes(B, K, V, itemsize, **mem),
                     lchunk, precision,
