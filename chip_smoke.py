@@ -10,8 +10,9 @@ Phases (any failure exits non-zero):
      registers and spills, and hold the host's shared-memory estimates
      to the kernels' own figures; every f64 instantiation of the
      recurrence kernels (fused, on-the-fly, streaming; the 1024-thread
-     ones included) and of the table forward (the tensor-core body and
-     the scalar body it is checked against) without stack or spills;
+     ones included) and every instantiation of the table kernels (the
+     tensor-core body, the f32 inverse and the scalar body they are
+     checked against) without stack or spills;
      for the attention kernel, each
      instantiation's registers, local memory, shared memory per block
      and blocks per SM (at most 232 448 bytes; the bf16 kernel at
@@ -36,13 +37,16 @@ Phases (any failure exits non-zero):
      plain versions: B = 128 f64 V = 8 on plan(128, impl="dense")'s own table
      (ragged at tl = 16, its work list against the dense block count),
      B = 64 f32 V = 8, and edge shapes B = 4..32 (J < 32, C2 = 16..48,
-     tl 2 / 4 / B); kernel, plain and torch.bmm times beside each bound,
+     tl 2 / 4 / B; B = 5, where J is no multiple of 4, for the table
+     kernels); kernel, plain and torch.bmm times beside each bound,
      and the on-the-fly kernels against the fused ones (torch.equal and
      both times) at B = 128 f64 and B = 64 f32; at every f64 shape the
-     tensor-core dwt_dense / dwt_ragged torch.equal to the scalar FMA
-     body (the _fma check symbols, timed beside them at B = 128), ragged
-     == dense on the visited rows, lane k == the single transform, and an
-     irregular work list written exactly on its rows;
+     tensor-core dwt_dense / dwt_ragged / idwt_dense, and at every f32
+     shape idwt_dense, torch.equal to the scalar FMA body (the _fma check
+     symbols, timed beside them at B = 128 f64 and B = 64 f32), ragged
+     == dense on the visited rows, lane k == the single transform
+     (forward and inverse), and an irregular work list written exactly
+     on its rows;
   4. the main path: repro_torch.plan(128) at its defaults,
      inverse_batch of 8 coefficient sets then forward_batch, held to the
      paper's Table-1 roundtrip metric and to the single transforms;
@@ -227,7 +231,7 @@ def ptxas_summary(name: str, text: str) -> list[str]:
         short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
                           r"dwt_stream_inv|build_windows_kernel|"
                           r"onthefly_fwd|onthefly_inv|dense_kernel|"
-                          r"dense_fwd_dmma|"
+                          r"dense_dmma|dense_inv_f32|"
                           r"folded_attention_bf16_kernel|"
                           r"folded_attention_scalar_kernel)"
                           r"I(.*?)EEv", k["kernel"])
@@ -306,14 +310,15 @@ def recurrence_kernel_info(logs: dict) -> dict:
 
 def table_kernel_info(log_text: str) -> dict:
     """Phase 2 for the table kernels (dwt_dense.cu): their shared-memory
-    figures (``dwt_dense_smem_bytes``: the scalar body's static figure,
-    the f64 forward's static plus dynamic) against
+    figures (``dwt_dense_smem_bytes``: the ring bodies' static plus
+    dynamic figure, the scalar body's static one) against
     autotune.dense_smem_bytes at spans 2..256, C2 = 16 / 48 / 128, f32 and
-    f64, forward and inverse; and every f64 forward instantiation's
-    registers, stack frame and spills from its ptxas log -- the DMMA
-    body (dense_fwd_dmma, 16 / 64 lanes, dense and ragged) and the scalar
-    body's (dense_kernel<double, ..., forward>, the bit reference) --
-    held to no local memory."""
+    f64, forward and inverse; and the registers, stack frame and spills
+    of every kernel the file compiles, from its ptxas log -- the DMMA
+    body (dense_dmma, 16 / 64 lanes, dense, ragged and inverse), the f32
+    inverse (dense_inv_f32, 16 / 64 lanes) and the scalar body
+    (dense_kernel, f32 and f64, four tiles, dense, ragged and inverse: the
+    f32 forwards and the bit reference) -- held to no local memory."""
     import ctypes
     from repro_torch.kernels import autotune, runtime
     fn = runtime.library("dwt_dense").dwt_dense_smem_bytes
@@ -331,18 +336,22 @@ def table_kernel_info(log_text: str) -> dict:
                              f"kernel's {c} (span={span}, C2={C2}, "
                              f"itemsize={itemsize}, inverse={inv})")
     out = {}
+    way = {("0", "0"): "forward", ("0", "1"): "ragged", ("1", "0"): "inverse"}
     for k in ptxas_kernels(log_text):
-        hit = re.search(r"dense_fwd_dmmaILi(\d+)ELb(\d)E", k["kernel"])
         name = None
+        hit = re.search(r"dense_dmmaILi(\d+)ELb(\d)ELb(\d)E", k["kernel"])
         if hit:
-            name = (f"dense_fwd_dmma<{2 * int(hit.group(1))} lanes"
-                    f"{' ragged' if hit.group(2) == '1' else ''}>")
-        hit = re.search(r"dense_kernelIdLi(\d)ELi(\d)ELb0ELb(\d)E",
+            name = (f"dense_dmma<f64 {2 * int(hit.group(1))} lanes "
+                    f"{way[hit.group(2), hit.group(3)]}>")
+        hit = re.search(r"dense_inv_f32ILi(\d+)E", k["kernel"])
+        if hit:
+            name = f"dense_inv_f32<{hit.group(1)} lanes inverse>"
+        hit = re.search(r"dense_kernelI([fd])Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
                         k["kernel"])
         if hit:
-            name = (f"dense_kernel<f64 {16 * int(hit.group(1))} x "
-                    f"{16 * int(hit.group(2))}"
-                    f"{' ragged' if hit.group(3) == '1' else ''}>")
+            name = (f"dense_kernel<f{32 if hit.group(1) == 'f' else 64} "
+                    f"{16 * int(hit.group(2))} x {16 * int(hit.group(3))} "
+                    f"{way[hit.group(4), hit.group(5)]}>")
         if name is None:
             continue
         if "stack" not in k:
@@ -355,11 +364,11 @@ def table_kernel_info(log_text: str) -> dict:
         if rec["stack_bytes"] or rec["spill_bytes"]:
             fail(f"{name} uses local memory (stack {rec['stack_bytes']}"
                  f" B, spills {rec['spill_bytes']} B)")
-    if len(out) != 12:
-        fail(f"expected 12 f64 table-forward instantiations in the ptxas "
-             f"log, found {len(out)}: {sorted(out)}")
-    log("  shared-memory estimates agree with the table kernels; no f64 "
-        "table-forward kernel uses local memory")
+    if len(out) != 32:
+        fail(f"expected 32 table-kernel instantiations in the ptxas log, "
+             f"found {len(out)}: {sorted(out)}")
+    log("  shared-memory estimates agree with the table kernels; no table "
+        "kernel uses local memory")
     return out
 
 
@@ -825,16 +834,18 @@ def _timed(rec, run, plain, lib, bound_):
 
 def table_raw(symbol, d, rhs, *, meta=None, kk=None, ll=None, tl=None,
               out=None):
-    """One launch of a C entry point of csrc/dwt_dense.cu on rhs, outside
-    the wrappers (counted by no LAUNCHES): ``symbol`` a dense forward
-    (d, rhs, out) or a ragged one on meta's perm and work list (or kk,
-    ll) at tk = 8; ``out`` defaults to torch.empty."""
+    """One launch of a C entry point of csrc/dwt_dense.cu on rhs (the
+    inverse's lhs), outside the wrappers (counted by no LAUNCHES):
+    ``symbol`` a dense forward or inverse (d, rhs, out) or a ragged
+    forward on meta's perm and work list (or kk, ll) at tk = 8; ``out``
+    defaults to torch.empty."""
     import torch
     from repro_torch.kernels import runtime
     K, L, J = d.shape
     C2 = rhs.shape[-1]
     if out is None:
-        out = torch.empty((K, L, C2), dtype=d.dtype, device=d.device)
+        out = torch.empty((K, J if symbol.startswith("idwt") else L, C2),
+                          dtype=d.dtype, device=d.device)
     if "ragged" in symbol:
         kk = meta.kk_t if kk is None else kk
         ll = meta.ll_t if ll is None else ll
@@ -890,14 +901,37 @@ def dmma_gates(c: TableCase, meta, seen, tl: int, dense, ragged) -> dict:
     return {k: bool(v) for k, v in gates.items()}
 
 
+def inverse_gates(c: TableCase, got) -> dict:
+    """idwt_dense (``got``, the wrapper's output on c) against the scalar
+    FMA body (``idwt_dense_f64_fma`` / ``idwt_dense_f32_fma``) and, for
+    V > 1, lane k against the single transform, torch.equal.  Any
+    difference fails."""
+    import torch
+    from repro_torch.kernels import runtime
+
+    sfx = runtime.suffix(c.dtype)
+    gates = {f"idwt_dense == idwt_dense_{sfx}_fma": torch.equal(
+        got, table_raw(f"idwt_dense_{sfx}_fma", c.d, c.lhs))}
+    if c.V > 1:
+        gates["idwt_dense lane k == single transform"] = torch.equal(
+            torch.cat([table_raw(f"idwt_dense_{sfx}", c.d, grp)
+                       for grp in runtime.lane_groups(c.lhs)], -1), got)
+    for what, ok in gates.items():
+        log(f"  {what} {c.tag}: {ok}")
+        if not ok:
+            fail(f"{what} fails at {c.tag}")
+    return {k: bool(v) for k, v in gates.items()}
+
+
 def table_case(c: TableCase, tl: int, *, time_it: bool):
     """dwt_dense / idwt_dense / dwt_ragged (tl) against their plain
     versions on c's table; the ragged output is compared on the blocks
     its work list visits (the rest is undefined).  In f64 the forward
-    kernels also pass :func:`dmma_gates`, and timed, the scalar FMA
-    body's time (``fma_ms``) stands beside theirs."""
+    kernels also pass :func:`dmma_gates`, and in both dtypes the inverse
+    :func:`inverse_gates`; timed, the scalar FMA body's time (``fma_ms``)
+    stands beside the f64 kernels' and the f32 inverse's."""
     import torch
-    from repro_torch.kernels import dwt as dk, dwt_fused as dfk, ops
+    from repro_torch.kernels import dwt as dk, dwt_fused as dfk, ops, runtime
 
     K, L, J, C2 = c.shape
     meta = ops._ragged_metadata(c.plan, 8, tl)
@@ -917,7 +951,9 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
              lambda: table_raw("dwt_dense_f64_fma", c.d, c.rhs)),
             ("idwt_dense", c.lhs, lambda: dk.idwt_dense(c.d, c.lhs, **kw),
              lambda: dk.idwt_dense_plain(c.d, c.lhs),
-             lambda: torch.bmm(c.d.transpose(1, 2), c.lhs), None),
+             lambda: torch.bmm(c.d.transpose(1, 2), c.lhs),
+             lambda: table_raw(f"idwt_dense_{runtime.suffix(c.dtype)}_fma",
+                               c.d, c.lhs)),
             ("dwt_ragged", c.rhs,
              lambda: dk.dwt_ragged(c.d, c.rhs, meta.kk_t, meta.ll_t,
                                    perm=meta.perm_t, **kw),
@@ -927,6 +963,8 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
              lambda: table_raw("dwt_ragged_f64_fma", c.d, c.rhs, meta=meta,
                                tl=tl))):
         got, want = run(), plain()
+        if name == "idwt_dense":
+            recs["inverse_gates"] = inverse_gates(c, got)
         if f64 and name == "dwt_dense":
             dense = got
         if f64 and name == "dwt_ragged":
@@ -942,10 +980,10 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
             _timed(rec, run, plain, lib, table_bound(
                 c.d, x, got, c.dname,
                 blocks=(G, 8, tl) if name == "dwt_ragged" else None))
-            if f64 and fma is not None:
+            if f64 or name == "idwt_dense":
                 rec["fma_ms"] = cuda_ms(fma, 5)
                 log(f"    scalar FMA body (the bit reference) "
-                    f"{rec['fma_ms']:.4f} ms: tensor cores / FMA = "
+                    f"{rec['fma_ms']:.4f} ms: kernel / scalar body = "
                     f"{rec['ms'] / rec['fma_ms']:.3f}")
         recs[name] = rec
         del got, want
@@ -1905,7 +1943,7 @@ def serve_path() -> dict:
 
 
 _BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel",
-                             "dense_fwd_dmma")),
+                             "dense_dmma", "dense_inv_f32")),
             ("cuFFT", ("fft",)),
             ("gather / scatter", ("index", "gather", "scatter")),
             ("cat / stack", ("Cat",)))
@@ -2075,6 +2113,12 @@ def main() -> int:
         table_case(c, tl, time_it=False)
         onthefly_case(c, time_it=False, equal_fused=True)
         del c
+    for dt in (torch.float64, torch.float32):
+        # odd B: J = 10 is no multiple of 4, so the f32 inverse runs the
+        # scalar body (the f64 kernels copy pairs, which fit)
+        c = TableCase(repro_torch.plan(5, dt, impl="dense"), 2, seed=5)
+        table_case(c, 5, time_it=False)
+        del c
     t0 = time.perf_counter()
     t_dense = repro_torch.plan(128, impl="dense")    # reused in phase 4c
     log(f"  plan(128, impl='dense') built in {time.perf_counter() - t0:.1f} s"
@@ -2187,7 +2231,7 @@ def main() -> int:
             "more": {k: {kk: v.get(kk) for kk in
                          ("max_err_vs_plain", "ms", "plain_ms", "library_ms",
                           "bound_ms", "bound_by", "tflops", "over_library",
-                          "over_bound", "fused_ms", "B", "dtype",
+                          "over_bound", "fused_ms", "fma_ms", "B", "dtype",
                           "V", "lchunk", "precision", "tl", "shape")
                          if kk in v}
                      for k, v in extra.items()},
@@ -2205,6 +2249,8 @@ def main() -> int:
                "recurrence_kernels": rec_kernels,
                "table_kernels": table_kernels,
                "dmma_gates_b128": trecs["dmma_gates"],
+               "inverse_gates_b128": trecs["inverse_gates"],
+               "inverse_gates_f32_b64": trecs32["inverse_gates"],
                "attention": attn, "attention_kernels": attn_kernels,
                "attn_tol": ATTN_TOL,
                "serve_path": serve, "logit_tol": LOGIT_TOL,

@@ -124,10 +124,11 @@ def estimate_smem_bytes(J: int, itemsize: int, *, inverse: bool,
     return itemsize * (_LT * nj + extra) + 3 * itemsize * _LT
 
 
-# Block geometry of csrc/dwt_dense.cu.  The scalar body (f32, the f64
-# inverse): 16 x 16 threads, kKC = 16 contraction indices staged per
-# round.  The f64 forward's DMMA body: 128 rows by 16 or 64 lanes, a ring
-# of 3 stages of 16 j, rows padded by 4 doubles.
+# Block geometry of csrc/dwt_dense.cu.  The scalar body (the f32
+# forwards): 16 x 16 threads, kKC = 16 contraction indices staged per
+# round.  The ring bodies (f64 on the tensor cores, the f32 inverse): 128
+# output rows by 16 or 64 lanes, a ring of 3 stages of 16 contraction
+# indices; the f64 rows padded by 4 doubles, the f32 rows unpadded.
 _DENSE_T, _DENSE_KC = 16, 16
 _RING_BR, _RING_KC, _RING_STAGES, _RING_PAD = 128, 16, 3, 4
 
@@ -136,18 +137,24 @@ def dense_smem_bytes(span: int, C2: int, itemsize: int, *,
                      inverse: bool = False) -> int:
     """Shared memory of one dense / ragged block, in bytes.
 
-    f32, and the f64 inverse (the scalar body, all static): the staged
-    table chunk (kKC x (BR + 1)) and operand chunk (kKC x BC), where a
-    unit of ``span`` output rows (L forward, J inverse, tl ragged) takes
-    BR = 16 rows if span <= 16, else 64, and C2 lanes BC = 16 if
-    C2 <= 16, else 64.  The f64 forward (the DMMA body, all dynamic; the
-    same for every span): 3 ring stages, each a table chunk of 128 rows
-    by 16 + 4 doubles and an rhs chunk of 16 rows by BC + 4 doubles, with
-    BC = 16 if C2 <= 16, else 64."""
-    if itemsize == 8 and not inverse:
-        bc = 16 if C2 <= 16 else 64
-        return 8 * _RING_STAGES * (_RING_BR * (_RING_KC + _RING_PAD)
-                                   + _RING_KC * (bc + _RING_PAD))
+    The ring bodies (all dynamic; the same for every span), with
+    BC = 16 lanes if C2 <= 16, else 64: 3 stages, each a table chunk and
+    an operand chunk of 16 rows by BC.  The table chunk is 128 rows of l
+    by 16 j in the f64 forward, 16 rows of l by 128 j in the inverses.
+    f64 rows are padded by 4 doubles (the tensor-core fragment loads);
+    the f32 inverse's are not (at odd B it runs the scalar body, which
+    takes less).  The f32 forwards (the scalar body, all
+    static): the staged table chunk (kKC x (BR + 1)) and operand chunk
+    (kKC x BC), where a unit of ``span`` output rows (L, or tl ragged)
+    takes BR = 16 rows if span <= 16, else 64, and C2 lanes BC = 16 if
+    C2 <= 16, else 64."""
+    bc = 16 if C2 <= 16 else 64
+    if itemsize == 8:
+        table = _RING_KC * (_RING_BR + _RING_PAD) if inverse else \
+            _RING_BR * (_RING_KC + _RING_PAD)
+        return 8 * _RING_STAGES * (table + _RING_KC * (bc + _RING_PAD))
+    if inverse:
+        return 4 * _RING_STAGES * _RING_KC * (_RING_BR + bc)
     br = _DENSE_T * (1 if span <= _DENSE_T else 4)
     bc = _DENSE_T * (1 if C2 <= _DENSE_T else 4)
     return itemsize * _DENSE_KC * ((br + 1) + bc)

@@ -5,9 +5,10 @@ Port of ``repro/kernels/dwt.py`` (the Pallas TPU kernels ``dwt_dense``,
 ``idwt_dense`` and ``dwt_ragged``).  The kernels are in
 ``csrc/dwt_dense.cu`` (see its header for the design and what bounds
 them): one tiled contraction against the (K, L, J) table d, used three
-ways.  The f64 forward (dense and ragged) runs on the FP64 tensor cores,
-everything else on the FMA pipes; both give one ascending fma chain per
-output element, so the two f64 forward bodies agree bit for bit.
+ways.  In f64 all three run on the FP64 tensor cores; the f32 inverse runs
+a register-blocked body on the FP32 FMA pipes, the f32 forwards a scalar
+one.  Every body gives one ascending fma chain per output element, so it
+agrees bit for bit with the scalar body it replaced.
 
     dwt_dense   out[k] = d[k] rhs[k]                       (K, L, C2)
     idwt_dense  g[k]   = d[k]^T lhs[k]                     (K, J, C2)
@@ -135,11 +136,11 @@ def _check(name, d, x, *, inverse: bool):
         raise ValueError(f"{name}: operand must be contiguous {d.dtype} "
                          f"(K={K}, {A}, C2) on {d.device}, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
-    # the f64 forward copies 16-byte pairs (J and C2 are even)
-    if d.dtype == torch.float64 and not inverse and (
+    # the f64 kernels copy 16-byte pairs (J and C2 are even)
+    if d.dtype == torch.float64 and (
             d.data_ptr() % 16 or x.data_ptr() % 16 or J % 2
             or x.shape[-1] % 2):
-        raise ValueError(f"{name}: the f64 forward needs d and the operand "
+        raise ValueError(f"{name}: the f64 kernels need d and the operand "
                          f"on 16-byte boundaries and even J, C2")
     return K, L, J, x.shape[-1]
 

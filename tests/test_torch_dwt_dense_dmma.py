@@ -1,5 +1,5 @@
 """The summation schedule of the f64 table forward on the FP64 tensor
-cores (csrc/dwt_dense.cu, dense_fwd_dmma) emulated on the CPU, against
+cores (csrc/dwt_dense.cu, dense_dmma) emulated on the CPU, against
 the reference package.
 
 On the card the f64 dwt_dense / dwt_ragged contract with
@@ -56,7 +56,7 @@ def kernel_lanes(C2: int) -> int:
 
 def runs(kk, ll):
     """{entry g: run length} for every entry that starts a run, as
-    dense_fwd_dmma finds them: g starts a run unless entry g - 1 names the
+    dense_dmma finds them: g starts a run unless entry g - 1 names the
     same cluster tile and the l-tile before; the run goes on while the
     entries name that tile and the next l-tiles."""
     G, out = len(kk), {}
@@ -99,7 +99,7 @@ def blocks(K, L, C2, *, br, bc, work=None, tk=TK, tl=None, perm=None):
 
 def emulate(d, rhs, *, br, kc, bc=None, work=None, tk=TK, tl=None,
             perm=None):
-    """dense_fwd_dmma on numpy f64 arrays; rows it does not write are
+    """dense_dmma's forward on numpy f64 arrays; rows it does not write are
     NaN."""
     K, L, J = d.shape
     C2 = rhs.shape[-1]
@@ -276,16 +276,19 @@ def test_any_work_list_is_computed_exactly(kind):
 
 
 def test_ring_shared_memory_rule():
-    """The f64 forward's shared memory: 3 stages of a 128 x (16 + 4)
-    table chunk and a 16 x (BC + 4) rhs chunk, the same for every span;
-    the f64 inverse and f32 keep the scalar body's figure."""
+    """The f64 ring's shared memory: 3 stages of a table chunk -- forward
+    128 l x (16 + 4) j, inverse 16 l x (128 + 4) j -- and a 16 x (BC + 4)
+    operand chunk, the same for every span; the f32 inverse's ring holds
+    the same chunks unpadded in floats."""
     for C2, bc in ((16, 16), (32, 64), (48, 64), (64, 64), (128, 64)):
         assert kernel_lanes(C2) == bc
         want = 8 * 3 * (128 * 20 + 16 * (bc + 4))
         for span in (2, 16, 128, 256):
             assert autotune.dense_smem_bytes(span, C2, 8) == want
             assert autotune.dense_smem_bytes(span, C2, 8, inverse=True) == \
-                autotune.dense_smem_bytes(span, C2, 4, inverse=True) * 2
+                8 * 3 * (16 * 132 + 16 * (bc + 4)) == \
+                2 * autotune.dense_smem_bytes(span, C2, 4, inverse=True) \
+                + 8 * 3 * 16 * 8
     # two blocks an SM
     assert 2 * autotune.dense_smem_bytes(128, 128, 8) == 175104 <= \
         autotune.SMEM_LIMIT_BYTES

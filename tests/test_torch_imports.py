@@ -1,5 +1,6 @@
 """The port stands alone: importing repro_torch loads neither jax nor the
-reference package, and no module of it (nor chip_smoke.py) names them."""
+reference package, and no module of it (nor chip_smoke.py or tools/)
+names them."""
 import pathlib
 import re
 import subprocess
@@ -37,7 +38,8 @@ def test_import_loads_no_jax_or_reference():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]
+    + list((ROOT / "tools").glob("*.py"))),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     hits = _FORBIDDEN.findall(path.read_text())
