@@ -85,7 +85,23 @@ Phases (any failure exits non-zero):
      LOGIT_TOL with the same greedy tokens, and a planted fault (the
      diagonal kv block dropped in every layer) outside it (also for a
      40-token, padded prompt), and a torch.profiler breakdown of one
-     prefill and one decode step.
+     prefill and one decode step;
+  8. (every plan and the model freed first) rotational matching through
+     repro_torch.so3 at B = 128 f64, plan(128) at its defaults (V = 8):
+     8a. s2_analysis(s2_synthesis(flm)) on the card within S2_RTOL /
+     S2_ATOL of flm, and legendre_columns(16) equal to the rows of
+     wigner_d_fundamental(16); 8b. 16 planted pairs through
+     plan(128).engine().match_batch: exactly 2 idwt_fused launches and no
+     other kernel, every rotation within 1.5 pi / B, every result_key
+     equal to plan(128, V=1).engine().match, match_bank and the samples
+     route, peak memory against estimate_batch_bytes plus one group's
+     pair coefficients and grids, host <-> device copies of one group
+     under one grid's bytes, and a torch.profiler breakdown of one group
+     (written to OUT/profile_so3_b128.txt); 8c. SO3Service(bandwidths=
+     (64, 128), lane_width=None): 40 requests by drain() and 40 by the
+     background worker, exactly once, no shed / failure / retry, every
+     result_key equal to direct execution, admission and deadline as
+     typed errors, latency p50 / p99, and the serve_so3 CLI at B = 128.
 The line before the last is one JSON object {"kernels": [...]} (eleven
 kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
 the output directory OUT.
@@ -1741,7 +1757,6 @@ def serve_profile(model, prompts, max_len, path) -> dict:
     """torch.profiler over one prefill and one decode step: device time
     by bucket and the device's idle share of each window."""
     import torch
-    from torch.profiler import ProfilerActivity
 
     out = {}
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -1752,36 +1767,10 @@ def serve_profile(model, prompts, max_len, path) -> dict:
     for what, fn in (("prefill", lambda: model.prefill(prompts, max_len)),
                      ("decode_step", lambda: model.decode_step(
                          tok, states, prompts.shape[1]))):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        with open(path, "a") as fh:
-            fh.write(f"== {what}\n")
-            fh.write(events.table(sort_by="self_cuda_time_total",
-                                  row_limit=40, max_name_column_width=90))
-        buckets = {name: 0.0 for name, _ in _SERVE_BUCKETS}
-        buckets["other"] = 0.0
-        for e in events:
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            ms = e.self_device_time_total / 1e3
-            for name, keys in _SERVE_BUCKETS:
-                if any(key in e.key for key in keys):
-                    buckets[name] += ms
-                    break
-            else:
-                buckets["other"] += ms
-        busy = sum(buckets.values())
-        idle = max(0.0, 1 - busy / wall_ms)
-        log(f"  profiled {what}: wall {wall_ms:.2f} ms, device busy "
-            f"{busy:.2f} ms, idle share {idle:.3f}")
-        for name, ms in sorted(buckets.items(), key=lambda kv: -kv[1]):
-            log(f"    {name:28s} {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}")
+        prof, wall_ms = trace_window(fn, path, title=what, rows=40)
+        buckets, busy, _ = device_buckets(prof.key_averages(),
+                                          _SERVE_BUCKETS, "other")
+        idle = log_buckets(what, wall_ms, busy, buckets, width=28)
         out[what] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                      "idle_share": idle, "buckets_ms": buckets}
     return out
@@ -1949,51 +1938,464 @@ _BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel",
             ("cat / stack", ("Cat",)))
 
 
-def profile(t, fs, path: pathlib.Path) -> dict:
-    """torch.profiler over one inverse_batch + forward_batch of the main
-    path: device time by kernel, grouped into buckets, and the device's
-    idle share of the window's wall time.  The full table goes to
-    `path`."""
+def trace_window(fn, path: pathlib.Path, *, title=None, rows=-1,
+                 warm=False):
+    """One call of fn under torch.profiler (CPU and CUDA activity),
+    synchronized before and after: returns (profiler, wall ms) and
+    writes the key_averages table to `path` (appended under "== title"
+    when a title is given).  warm=True first runs fn once with tracing
+    on and its records dropped (the schedule's warmup step), so the
+    recorded call does not meet the tracer's start."""
     import torch
-    from torch.profiler import ProfilerActivity
+    from torch.profiler import ProfilerActivity, schedule
 
-    fh = t.forward_batch(fs)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+            if warm else None) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
-        t.inverse_batch(fh)
-        t.forward_batch(fs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=rows,
+                                      max_name_column_width=90)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(events.table(sort_by="self_cuda_time_total",
-                                 row_limit=-1, max_name_column_width=90))
-    buckets = {name: 0.0 for name, _ in _BUCKETS}
-    buckets["other elementwise / copy"] = 0.0
+    with open(path, "a" if title else "w") as fh:
+        fh.write(f"== {title}\n{table}" if title else table)
+    return prof, wall_ms
+
+
+def device_buckets(events, rules, other: str):
+    """Device ms of key_averages `events`, each under the first rule
+    (name, substrings) with a substring in its key, else under `other`:
+    (buckets, busy ms, [(ms, count, key)])."""
+    import torch
+    buckets = dict.fromkeys([name for name, _ in rules] + [other], 0.0)
     kernels = []
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         kernels.append((ms, e.count, e.key))
-        for name, keys in _BUCKETS:
-            if any(k in e.key for k in keys):
-                buckets[name] += ms
-                break
-        else:
-            buckets["other elementwise / copy"] += ms
-    busy = sum(ms for ms, _, _ in kernels)
-    log(f"  profiled inverse_batch + forward_batch: wall {wall_ms:.2f} ms, "
-        f"device busy {busy:.2f} ms, idle share "
-        f"{max(0.0, 1 - busy / wall_ms):.3f}")
+        buckets[next((name for name, keys in rules
+                      if any(k in e.key for k in keys)), other)] += ms
+    return buckets, sum(ms for ms, _, _ in kernels), kernels
+
+
+def log_buckets(what, wall_ms, busy, buckets, width=26) -> float:
+    """Log a profiled window's wall and busy time and its buckets;
+    returns the device's idle share of the window."""
+    idle = max(0.0, 1 - busy / wall_ms)
+    log(f"  profiled {what}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share {idle:.3f}")
     for name, ms in sorted(buckets.items(), key=lambda kv: -kv[1]):
-        log(f"    {name:26s} {ms:9.3f} ms  {ms / busy:6.1%}")
+        log(f"    {name:{width}s} {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}")
+    return idle
+
+
+def profile(t, fs, path: pathlib.Path) -> dict:
+    """torch.profiler over one inverse_batch + forward_batch of the main
+    path: device time by kernel, grouped into buckets, and the device's
+    idle share of the window's wall time.  The full table goes to
+    `path`."""
+    fh = t.forward_batch(fs)
+    prof, wall_ms = trace_window(
+        lambda: (t.inverse_batch(fh), t.forward_batch(fs)), path)
+    buckets, busy, kernels = device_buckets(
+        prof.key_averages(), _BUCKETS, "other elementwise / copy")
+    idle = log_buckets("inverse_batch + forward_batch", wall_ms, busy,
+                       buckets)
     for ms, n, key in sorted(kernels, reverse=True)[:12]:
         log(f"    {ms:9.3f} ms  x{n:<4d} {key[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
             "buckets_ms": buckets}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 8: rotational matching (repro_torch.so3) at B = 128
+# ---------------------------------------------------------------------------
+
+SO3_B = 128
+SO3_MIX = (64, SO3_B)      # the service's bandwidths
+SO3_PAIRS = 16
+# s2_analysis(s2_synthesis(flm)) against flm at B = 128, torch.allclose
+# rtol / atol, fixed before the first card run.  The reference holds
+# B <= 16 at 1e-11 / 1e-12 (tests/test_so3.py); the error grows about as
+# B^2 (max abs on the CPU: 2e-15 at B = 4, 1.9e-14 at 16, 1.4e-12 at
+# 128), so atol is 1e-11 here.
+S2_RTOL, S2_ATOL = 1e-11, 1e-11
+SO3_BUCKETS = ("idwt_fused", "cuFFT", "gather / scatter",
+               "pair-coefficient build", "argmax / stencil", "cat / stack",
+               "other elementwise / copy")
+
+
+def planted_pairs(B: int, n: int, seed: int) -> list:
+    """n planted pairs (f, g, true) on the host, as the reference plants
+    them: g = random_s2_coeffs(B, seed + i), true = random_rotation of a
+    default_rng(seed) stream, f = rotate_s2_coeffs(g, true)."""
+    import numpy as np
+    from repro_torch.core import soft
+    from repro_torch.so3 import s2
+    from repro_torch.so3.correlate import random_rotation
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        true = random_rotation(rng)
+        g = soft.random_s2_coeffs(B, seed=seed + i)
+        out.append((s2.rotate_s2_coeffs(g, true), g, true))
+    return out
+
+
+def recovery_steps(res, true, B: int) -> float:
+    """Worst Euler-angle error of a match in grid steps (pi / B)."""
+    import numpy as np
+    from repro_torch.so3.correlate import angle_error
+    return max(angle_error(e, t) for e, t in zip(res.euler, true)) * B / np.pi
+
+
+def so3_s2() -> dict:
+    """8a: s2_analysis(s2_synthesis(flm)) on the card at B = 128 against
+    flm (S2_RTOL / S2_ATOL), both transforms timed; the reduced Legendre
+    march equal to the rows of wigner_d_fundamental(16)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import soft, wigner
+    from repro_torch.so3 import s2
+
+    B = SO3_B
+    t0 = time.perf_counter()
+    s2.legendre_columns(B)
+    leg_s = time.perf_counter() - t0
+    flm = torch.as_tensor(soft.random_s2_coeffs(B, seed=B), device=DEV)
+    f = s2.s2_synthesis(flm)
+    back = s2.s2_analysis(f, B)
+    err = float((back - flm).abs().max())
+    close = bool(torch.allclose(back, flm, rtol=S2_RTOL, atol=S2_ATOL))
+    if not (close and f.device == flm.device):
+        fail(f"8a: S^2 roundtrip at B={B}: max abs {err:.3e} outside "
+             f"rtol {S2_RTOL:g} / atol {S2_ATOL:g}")
+    Bs = 16
+    fund, _ = wigner.wigner_d_fundamental(Bs)
+    want = np.zeros((Bs, 2 * Bs - 1, 2 * Bs))
+    for m in range(Bs):
+        row = fund[m * (m + 1) // 2]
+        want[:, Bs - 1 + m] = row
+        want[:, Bs - 1 - m] = (-1.0) ** m * row
+    exact = bool(np.array_equal(s2.legendre_columns(Bs), want))
+    if not exact:
+        fail("8a: legendre_columns(16) differs from the rows of "
+             "wigner_d_fundamental(16)")
+    res = {"roundtrip_max_abs": err, "legendre_b16_exact": exact,
+           "legendre_columns_b128_s": leg_s,
+           "synthesis_ms": cuda_ms(lambda: s2.s2_synthesis(flm), 5),
+           "analysis_ms": cuda_ms(lambda: s2.s2_analysis(f, B), 5)}
+    log(f"  s2_analysis(s2_synthesis(flm)) B={B}: max abs {err:.3e} (rtol "
+        f"{S2_RTOL:g}, atol {S2_ATOL:g}); synthesis {res['synthesis_ms']:.3f}"
+        f" ms, analysis {res['analysis_ms']:.3f} ms (CUDA events); "
+        f"legendre_columns({B}) {leg_s:.2f} s on the host; reduced march == "
+        f"wigner_d_fundamental(16) rows: {exact}")
+    return res
+
+
+def so3_profile(eng, fs, gs, path: pathlib.Path) -> dict:
+    """torch.profiler over one launch group of match_batch, after a
+    warmup step with tracing on: host <-> device copy bytes by direction
+    and the copy calls that have no device record, device ms by bucket
+    (SO3_BUCKETS; the pair build and the peak search by the engine's
+    profiler ranges), and the device's idle share of the window.  The
+    kernel table goes to `path`."""
+    prof, wall_ms = trace_window(lambda: eng.match_batch(fs, gs), path,
+                                 warm=True)
+    trace = path.with_suffix(".json")
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    trace.unlink()
+    ranges, launched, kernels, calls, recorded = [], {}, [], [], set()
+    copies = {"HtoD": 0, "DtoH": 0, "DtoD": 0, "other": 0}
+    busy_us = 0.0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name, args = e.get("cat", ""), e.get("name", ""), \
+            e.get("args") or {}
+        where = (e.get("pid"), e.get("tid"))
+        if cat == "user_annotation" and name.startswith("so3."):
+            ranges.append((where, e["ts"], e["ts"] + e["dur"], name))
+        elif cat.startswith("cuda_") and "correlation" in args:
+            launched[args["correlation"]] = (where, e["ts"])
+            if name.startswith("cudaMemcpy"):
+                calls.append((e["ts"], args["correlation"]))
+        elif cat == "kernel":
+            kernels.append(e)
+            busy_us += e["dur"]
+        elif cat == "gpu_memcpy" or name.startswith("Memcpy"):
+            busy_us += e["dur"]
+            kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in name),
+                        "other")
+            copies[kind] += int(args.get("bytes", 0))
+            recorded.add(args.get("correlation"))
+        elif cat == "gpu_memset":
+            busy_us += e["dur"]
+    # positions (in call order) of copy calls the trace holds no copy for
+    unrecorded = [n for n, (_, c) in enumerate(sorted(calls))
+                  if c not in recorded]
+    buckets = dict.fromkeys(SO3_BUCKETS, 0.0)
+    for e in kernels:
+        name = e["name"]
+        where, ts = launched.get(e.get("args", {}).get("correlation"),
+                                 (None, None))
+        rng = next((r for w, a, b, r in ranges
+                    if w == where and a <= ts <= b), None) if ts else None
+        if "dwt_fused" in name:
+            key = "idwt_fused"
+        elif rng == "so3.pair_coeffs":
+            key = "pair-coefficient build"
+        elif rng == "so3.peak_euler":
+            key = "argmax / stencil"
+        elif "fft" in name.lower():
+            key = "cuFFT"
+        elif any(k in name for k in ("index", "gather", "scatter")):
+            key = "gather / scatter"
+        elif "Cat" in name:
+            key = "cat / stack"
+        else:
+            key = "other elementwise / copy"
+        buckets[key] += e["dur"] / 1e3
+    busy = busy_us / 1e3
+    idle = log_buckets(f"one match_batch group ({len(fs)} pairs)", wall_ms,
+                       busy, buckets)
+    log(f"    copies {copies} bytes: {len(calls)} copy calls, "
+        f"{len(calls) - len(unrecorded)} with a device record (missing at "
+        f"call positions {unrecorded}); {len(kernels)} kernels, "
+        f"{len(ranges)} engine ranges")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
+            "buckets_ms": buckets, "copy_bytes": copies,
+            "copy_calls": len(calls), "unrecorded_copies": unrecorded,
+            "kernels": len(kernels), "ranges": len(ranges)}
+
+def so3_engine(pairs, counts: dict) -> dict:
+    """8b: plan(128).engine() at its defaults (V = 8).  match_batch of the
+    planted pairs with the launch counts zeroed just before and read just
+    after (one idwt_fused launch per group of V, no other kernel); every
+    rotation recovered within 1.5 pi / B; every result_key equal to
+    plan(128, V=1).engine().match of the same pair; match_bank of one
+    query against V templates; a pair entered as (2B, 2B) samples; the
+    peak device memory against estimate_batch_bytes plus one group's pair
+    coefficients and grids; host <-> device copies of one group under one
+    grid's bytes (the grids stay on the card); times."""
+    import torch
+    import repro_torch
+    from repro_torch.so3 import result_key, s2
+
+    B = SO3_B
+    t0 = time.perf_counter()
+    t = repro_torch.plan(B)
+    eng = t.engine()
+    plan_s = time.perf_counter() - t0
+    V = eng.lane_width
+    if V != 8 or eng.impl != "fused":
+        fail(f"8b: plan({B}) resolved V={V} impl={eng.impl}, not 8 / fused")
+    fs = [p[0] for p in pairs]
+    gs = [p[1] for p in pairs]
+    eng.match(fs[0], gs[0])             # builds the plan's launch inputs
+    groups = -(-len(pairs) // V)
+    reset_all_launches()
+    eng.reset_stats()
+    results, peak, before = peak_of(lambda: eng.match_batch(fs, gs))
+    counts.update(all_launches())
+    others = {k: v for k, v in counts.items() if k != "idwt_fused" and v}
+    log(f"  match_batch({len(pairs)}) on plan({B}) V={V}: launches "
+        f"{counts}, engine stats {eng.stats}")
+    if counts["idwt_fused"] != groups or others or \
+            eng.stats["launches"] != groups:
+        fail(f"8b: {len(pairs)} pairs took {counts['idwt_fused']} "
+             f"idwt_fused launches (want {groups}) and {others} others")
+    worst = max(recovery_steps(r, p[2], B) for r, p in zip(results, pairs))
+    log(f"  worst recovery error {worst:.3f} grid steps (gate 1.5)")
+    if not worst < 1.5:
+        fail(f"8b: a planted rotation was not recovered ({worst:.3f} steps)")
+    grid_bytes = (2 * B) ** 3 * 16
+    pair_bytes = B * (2 * B - 1) ** 2 * 16
+    est = t.describe()["batch_bytes"]
+    limit = est + V * (pair_bytes + grid_bytes)
+    log(f"  peak device memory {peak} bytes (before {before}) vs "
+        f"estimate_batch_bytes {est} + one group's pair coefficients "
+        f"{V * pair_bytes} and grids {V * grid_bytes} = {limit}")
+    if peak > limit:
+        fail(f"8b: peak device memory {peak} over {limit}")
+    t1 = repro_torch.plan(B, V=1)
+    e1 = t1.engine()
+    direct = [e1.match(f, g) for f, g in zip(fs, gs)]
+    same = [result_key(a) == result_key(b) for a, b in zip(results, direct)]
+    log(f"  result_key batched (V={V}) == direct (V=1): {sum(same)} of "
+        f"{len(same)}")
+    if not all(same):
+        fail(f"8b: batched results differ from direct ones at "
+             f"{[n for n, s in enumerate(same) if not s]}")
+    q = 5 % V
+    best, _ = eng.match_bank(fs[q], gs[:V])
+    samples = eng.match(s2.s2_synthesis(fs[0], device=DEV),
+                        s2.s2_synthesis(gs[0], device=DEV))
+    log(f"  match_bank: template {best} of {V} (planted {q}); samples route "
+        f"index {samples.index} vs coefficients {results[0].index}")
+    if best != q or samples.index != results[0].index:
+        fail("8b: match_bank or the samples route missed the planted pair")
+    cf = [eng.as_coeffs(f) for f in fs[:V]]
+    cg = [eng.as_coeffs(g) for g in gs[:V]]
+    timing = {
+        "plan_s": plan_s,
+        "match_batch_ms": host_ms(lambda: eng.match_batch(fs, gs), 2),
+        "correlation_grids_group_ms": host_ms(
+            lambda: eng.correlation_grids(cf, cg), 3),
+        "direct_match_ms": host_ms(lambda: e1.match(fs[0], gs[0]), 3),
+    }
+    timing["per_group_ms"] = timing["match_batch_ms"] / groups
+    timing["per_request_ms"] = timing["match_batch_ms"] / len(pairs)
+    log(f"  match_batch({len(pairs)}) {timing['match_batch_ms']:.2f} ms: "
+        f"{timing['per_group_ms']:.2f} ms per group of {V}, "
+        f"{timing['per_request_ms']:.2f} ms per request; correlation_grids "
+        f"of one group {timing['correlation_grids_group_ms']:.2f} ms; one "
+        f"direct (V=1) match {timing['direct_match_ms']:.2f} ms (host "
+        f"clock, synchronized)")
+    del cf, cg
+    prof = so3_profile(eng, fs[:V], gs[:V], OUT / "profile_so3_b128.txt")
+    # a group's only copies: its 2 V coefficient vectors up, and per
+    # request the 8 numbers of peak_euler and the 2 norms (f64) down
+    want = {"HtoD": 2 * V * B * (2 * B - 1) * 16, "DtoH": V * 10 * 8,
+            "DtoD": 0, "other": 0}
+    if prof["copy_bytes"] != want or prof["unrecorded_copies"]:
+        fail(f"8b: one group's copies {prof['copy_bytes']} bytes, want "
+             f"{want} (a grid is {grid_bytes} bytes), copy calls without "
+             f"a device record at {prof['unrecorded_copies']}")
+    return {"V": V, "launches": dict(counts), "worst_steps": worst,
+            "peak_bytes": peak, "before_bytes": before,
+            "estimate_bytes": est, "limit_bytes": limit,
+            "batched_equals_direct": sum(same), "bank_best": best,
+            "timing": timing, "profile": prof}
+
+
+def so3_service(pools) -> dict:
+    """8c: SO3Service(bandwidths=(64, 128), lane_width=None): warmup, 40
+    seeded interleaved requests by drain(), 40 by start() / close() with
+    max_wait_ms=5; exactly once, no shed / failure / retry, every
+    result_key equal to direct execution; admission (max_queue=4, 8
+    submits) and an expired deadline typed; the serve_so3 CLI."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.launch import serve_so3
+    from repro_torch.obs import Recorder
+    from repro_torch.so3 import Expired, Rejected, SO3Service, result_key
+
+    Bs = tuple(sorted(pools))
+    svc = SO3Service(bandwidths=Bs, lane_width=None, max_wait_ms=5.0,
+                     recorder=Recorder())
+    svc.warmup()
+    parts = svc.stats()["warmup_parts_s"]
+    rng = np.random.default_rng(19)
+    used = dict.fromkeys(Bs, 0)
+
+    def draw(n):
+        jobs = []
+        for _ in range(n):
+            B = int(rng.choice(Bs))
+            jobs.append((B, used[B] % len(pools[B]), bool(rng.integers(2))))
+            used[B] += 1
+        return jobs
+
+    def submit(job):
+        B, k, refine = job
+        f, g, _ = pools[B][k]
+        return svc.submit(f, g, refine=refine)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    jobs = draw(40)
+    t0 = time.perf_counter()
+    futs = [submit(j) for j in jobs]
+    served = svc.drain()
+    drain_s = time.perf_counter() - t0
+    more = draw(40)
+    svc.start()
+    t0 = time.perf_counter()
+    for j in more:
+        futs.append(submit(j))
+        time.sleep(float(rng.uniform(0, 2.5e-3)))
+    svc.close()
+    worker_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    jobs += more
+    st = svc.stats()
+    ledger = {k: st[k] for k in ("submitted", "resolved", "completed",
+                                 "shed", "failed", "retries", "cancelled")}
+    log(f"  ledger {ledger}")
+    if not (st["submitted"] == st["resolved"] == st["completed"] == 80
+            and st["shed"] == st["failed"] == st["retries"] == 0):
+        fail(f"8c: service ledger {ledger}")
+    direct_eng = {B: repro_torch.plan(B, V=1).engine() for B in Bs}
+    direct, wrong, worst = {}, [], 0.0
+    for n, (job, fu) in enumerate(zip(jobs, futs)):
+        B, k, refine = job
+        res = fu.result(timeout=0)
+        if job not in direct:
+            f, g, _ = pools[B][k]
+            direct[job] = result_key(direct_eng[B].match(f, g, refine=refine))
+        if result_key(res) != direct[job]:
+            wrong.append(n)
+        worst = max(worst, recovery_steps(res, pools[B][k][2], B))
+    lat, ready = st.get("latency_s", {}), st.get("grids_ready_s", {})
+    log(f"  warmup {parts} s; drain(): {served} requests in {drain_s:.3f} s;"
+        f" worker: {len(more)} in {worker_s:.3f} s; launches {st['launches']}"
+        f", occupancy {st['occupancy']:.3f}, latency (submit -> result) p50 "
+        f"{lat.get('p50', 0) * 1e3:.2f} ms p99 {lat.get('p99', 0) * 1e3:.2f} "
+        f"ms, grids ready p50 {ready.get('p50', 0) * 1e3:.2f} ms p99 "
+        f"{ready.get('p99', 0) * 1e3:.2f} ms; peak device memory {peak} "
+        f"bytes; worst recovery "
+        f"{worst:.3f} steps; result_key == direct for "
+        f"{len(jobs) - len(wrong)} of {len(jobs)}")
+    if wrong or not worst < 1.5:
+        fail(f"8c: requests {wrong} differ from direct execution, worst "
+             f"recovery {worst:.3f} steps")
+    svc2 = SO3Service(bandwidths=Bs[:1], lane_width=None, max_queue=4,
+                      recorder=Recorder())
+    f, g, _ = pools[Bs[0]][0]
+    futs2 = [svc2.submit(f, g) for _ in range(8)]
+    shed = [fu for fu in futs2 if fu.done()]
+    rejected = sum(isinstance(fu.exception(timeout=0), Rejected)
+                   for fu in shed)
+    svc2.drain()
+    late = svc2.submit(f, g, deadline_s=1e-3)
+    time.sleep(0.02)
+    svc2.drain()
+    expired = isinstance(late.exception(timeout=0), Expired)
+    st2 = svc2.stats()
+    log(f"  max_queue=4, 8 submits: {rejected} Rejected; deadline 1 ms: "
+        f"Expired {expired}; ledger submitted {st2['submitted']} resolved "
+        f"{st2['resolved']} completed {st2['completed']}")
+    if rejected != 4 or len(shed) != 4 or not expired or \
+            st2["submitted"] != st2["resolved"] or st2["completed"] != 4:
+        fail("8c: admission or deadline did not resolve as typed errors")
+    try:
+        cli = serve_so3.main(["--bandwidth", str(SO3_B), "--requests", "16"])
+    except SystemExit as e:
+        fail(f"8c: serve_so3 exited with {e}")
+    if cli["completed"] != 16 or cli["failed"] or cli["retries"]:
+        fail(f"8c: serve_so3 served {cli['completed']} of 16")
+    return {"warmup_parts_s": parts, "drain_s": drain_s,
+            "worker_s": worker_s, "latency_s": lat, "grids_ready_s": ready,
+            "launches": st["launches"], "occupancy": st["occupancy"],
+            "peak_bytes": peak, "ledger": ledger,
+            "worst_steps": worst, "rejected": rejected, "expired": expired,
+            "cli": {k: cli[k] for k in ("completed", "launches",
+                                        "occupancy")}
+            | {k: cli.get(k) for k in ("latency_s", "grids_ready_s")}}
 
 
 def main() -> int:
@@ -2049,6 +2451,12 @@ def main() -> int:
         c = Case(B, dt, V, seed=B)
         fused_case(c, time_it=False)
         streaming_case(c, lc, prec, time_it=False)
+        del c
+    # the other shapes phase 8 launches idwt_fused at: the service's B = 64
+    # groups (V = 8) and the direct engines it and 8b compare with (V = 1)
+    for B, V in ((64, 8), (64, 1), (128, 1)):
+        c = Case(B, torch.float64, V, seed=B + V)
+        fused_case(c, time_it=False)
         del c
     c = Case(128, torch.float64, 8, seed=128)
     recs = fused_case(c, time_it=True)
@@ -2179,6 +2587,23 @@ def main() -> int:
     log(f"== 7b. serve path: {SERVE_ARCH} generate, batch {SERVE_BATCH}, "
         f"prompt {SERVE_PROMPT}, {SERVE_TOKENS} greedy tokens")
     serve = serve_path()
+    free_plans()       # phase 8 measures its own peaks
+
+    log(f"== 8. rotational matching: repro_torch.so3 at B = {SO3_B}")
+    log("  8a. S^2 transforms")
+    s2_res = so3_s2()
+    t0 = time.perf_counter()
+    pools = {B: planted_pairs(B, SO3_PAIRS, seed=10 * B) for B in SO3_MIX}
+    log(f"  planted {SO3_PAIRS} pairs at each B of {SO3_MIX} on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  8b. engine: plan({SO3_B}).engine().match_batch({SO3_PAIRS})")
+    so3_counts = {}
+    engine_res = so3_engine(pools[SO3_B], so3_counts)
+    free_plans()       # the service builds its plans in its warmup
+    log(f"  8c. service: SO3Service(bandwidths={SO3_MIX}, lane_width=None)")
+    service_res = so3_service(pools)
+    del pools
+    free_plans()
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
@@ -2236,6 +2661,7 @@ def main() -> int:
                          if kk in v}
                      for k, v in extra.items()},
             "launches_b256_single": counts256.get(name, 0),
+            "launches_so3_match_batch16": so3_counts.get(name, 0),
             "launches_b512_single": r512["launches"].get(name, 0),
         })
     summary = {"main_path_b128_v8": timing, "streaming_path_b128": stiming,
@@ -2254,6 +2680,9 @@ def main() -> int:
                "attention": attn, "attention_kernels": attn_kernels,
                "attn_tol": ATTN_TOL,
                "serve_path": serve, "logit_tol": LOGIT_TOL,
+               "so3_b128": {"s2": s2_res, "engine": engine_res,
+                            "service": service_res,
+                            "s2_tol": [S2_RTOL, S2_ATOL]},
                "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke_summary.json").write_text(json.dumps(

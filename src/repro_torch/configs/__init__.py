@@ -3,11 +3,11 @@
 Only the ported architectures resolve; the reference's other ids raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
-from . import smollm_135m
+from . import smollm_135m, soft
 from .base import (ArchConfig, MoEConfig, ShapeConfig, LM_SHAPES,  # noqa: F401
                    shapes_for, sub_quadratic)
 
-__all__ = ["ARCH_NAMES", "get", "reduced", "ArchConfig", "MoEConfig",
+__all__ = ["ARCH_NAMES", "SOFT_CONFIGS", "get", "reduced", "ArchConfig", "MoEConfig",
            "ShapeConfig", "LM_SHAPES", "shapes_for", "sub_quadratic"]
 
 _MODULES = {
@@ -20,6 +20,9 @@ NOT_PORTED = ("recurrentgemma-9b", "musicgen-medium", "glm4-9b", "gemma-7b",
               "llama4-maverick-400b-a17b")
 
 ARCH_NAMES = tuple(_MODULES)
+
+# the paper's SO(3) FFT rows, soft_b32 .. soft_b512
+SOFT_CONFIGS = soft.CONFIGS
 
 
 def _module(name: str):

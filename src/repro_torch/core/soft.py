@@ -23,6 +23,7 @@ from . import quadrature, wigner
 
 __all__ = [
     "coeff_count", "random_coeffs", "coeff_mask",
+    "s2_coeff_mask", "random_s2_coeffs",
     "direct_inverse", "direct_forward",
     "inverse_soft", "forward_soft",
 ]
@@ -47,6 +48,23 @@ def random_coeffs(B: int, seed: int = 0, dtype=np.complex128) -> np.ndarray:
     f = (rng.uniform(-1, 1, (B, 2 * B - 1, 2 * B - 1))
          + 1j * rng.uniform(-1, 1, (B, 2 * B - 1, 2 * B - 1)))
     return (f * coeff_mask(B)).astype(dtype)
+
+
+def s2_coeff_mask(B: int) -> np.ndarray:
+    """Boolean mask of valid (l, m) cells in the dense S^2 layout (B, 2B-1)."""
+    l = np.arange(B)[:, None]
+    m = np.abs(np.arange(-(B - 1), B))[None, :]
+    return m <= l
+
+
+def random_s2_coeffs(B: int, seed: int = 0, dtype=np.complex128) -> np.ndarray:
+    """Seeded random S^2 coefficients flm[l, m + B - 1], |m| <= l < B
+    (Re, Im ~ N(0, 1) on the valid cells, zero elsewhere): the same draws
+    as the reference's, so both packages see identical test signals."""
+    rng = np.random.default_rng(seed)
+    f = (rng.normal(size=(B, 2 * B - 1))
+         + 1j * rng.normal(size=(B, 2 * B - 1)))
+    return (f * s2_coeff_mask(B)).astype(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ __all__ = [
     "recurrence_coeffs",
     "wigner_d_table",
     "fundamental_pairs",
+    "wigner_d_rows",
     "wigner_d_fundamental",
     "wigner_window_iter",
     "wigner_window_table",
@@ -182,35 +183,23 @@ def fundamental_pairs(B: int) -> np.ndarray:
     return np.asarray(out, dtype=np.int32)
 
 
-_FUND_CACHE: dict = {}
+def wigner_d_rows(B: int, pairs: np.ndarray,
+                  beta: np.ndarray | None = None) -> np.ndarray:
+    """d[p, l, j] = d(l, m_p, m'_p; beta_j) for the given pairs
+    (0 <= m'_p <= m_p < B), shape (len(pairs), B, J), zeros for l < m_p.
 
-
-def wigner_d_fundamental(B: int, beta: np.ndarray | None = None,
-                         dtype=np.float64) -> tuple[np.ndarray, np.ndarray]:
-    """Packed table d[P, B, J] on the fundamental domain 0 <= m' <= m < B.
-
-    Returns (table, pairs).  Row p holds d(l, m_p, m'_p; beta_j) for
-    l = 0..B-1 with zeros for l < m_p.  Built by running the three-term
-    recurrence for all P pairs simultaneously (vectorized over (P, J)),
-    which is exactly the computation the fused DWT kernels run in place
-    (kernels/csrc/recurrence.cuh).
-
-    Calls on the default quadrature grid (beta=None) are memoized by
-    (B, dtype); the cached arrays are marked read-only -- copy before
-    mutating.
+    The three-term recurrence marched for these pairs only, vectorized
+    over (pairs, J).  Every operation is elementwise per pair, so a row
+    is bit for bit the row the full fundamental table holds for its
+    pair: :func:`wigner_d_fundamental` is this march over all
+    B (B + 1) / 2 pairs.
     """
     from . import quadrature
 
-    key = None
-    if beta is None:
-        key = (B, np.dtype(dtype).str)
-        hit = _FUND_CACHE.get(key)
-        if hit is not None:
-            return hit
-        beta = quadrature.betas(B)
-    beta = np.asarray(beta, dtype=np.float64)
+    beta = quadrature.betas(B) if beta is None \
+        else np.asarray(beta, dtype=np.float64)
     J = len(beta)
-    pairs = fundamental_pairs(B)
+    pairs = np.asarray(pairs)
     P = len(pairs)
     m, mp = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
 
@@ -238,6 +227,37 @@ def wigner_d_fundamental(B: int, beta: np.ndarray | None = None,
         d_next = A[:, None] * (cb - mu[:, None]) * d_cur - C[:, None] * d_prev
         d_prev = np.where(active[:, None], d_cur, 0.0)
         d_cur = np.where(active[:, None], d_next, 0.0)
+    return table
+
+
+_FUND_CACHE: dict = {}
+
+
+def wigner_d_fundamental(B: int, beta: np.ndarray | None = None,
+                         dtype=np.float64) -> tuple[np.ndarray, np.ndarray]:
+    """Packed table d[P, B, J] on the fundamental domain 0 <= m' <= m < B.
+
+    Returns (table, pairs).  Row p holds d(l, m_p, m'_p; beta_j) for
+    l = 0..B-1 with zeros for l < m_p.  Built by running the three-term
+    recurrence for all P pairs simultaneously (vectorized over (P, J)),
+    which is exactly the computation the fused DWT kernels run in place
+    (kernels/csrc/recurrence.cuh).
+
+    Calls on the default quadrature grid (beta=None) are memoized by
+    (B, dtype); the cached arrays are marked read-only -- copy before
+    mutating.
+    """
+    from . import quadrature
+
+    key = None
+    if beta is None:
+        key = (B, np.dtype(dtype).str)
+        hit = _FUND_CACHE.get(key)
+        if hit is not None:
+            return hit
+        beta = quadrature.betas(B)
+    pairs = fundamental_pairs(B)
+    table = wigner_d_rows(B, pairs, beta)
     table = table.astype(dtype)
     if key is not None:
         table.flags.writeable = False

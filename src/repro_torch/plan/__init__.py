@@ -14,10 +14,11 @@ import sys
 import types
 
 from .transform import (IMPLS, Schedule, Transform, cache_stats,  # noqa: F401
-                        clear_cache, dense_table_bytes_limit, plan)
+                        clear_cache, dense_table_bytes_limit, plan,
+                        warm_bandwidths)
 
 __all__ = ["plan", "Transform", "Schedule", "clear_cache", "cache_stats",
-           "dense_table_bytes_limit", "IMPLS"]
+           "warm_bandwidths", "dense_table_bytes_limit", "IMPLS"]
 
 
 class _CallableModule(types.ModuleType):

@@ -12,6 +12,7 @@ through the CUDA kernels.
     to = plan(B, impl="onthefly")          # every degree, no ragged skip
     td = plan(B, impl="dense")             # resident (K, L, J) table
     tr = plan(B, impl="ragged", tl=16)     # table, work-list forward
+    t.engine().match_batch(fs, gs)         # rotational matching (so3/)
 
 The port of ``repro.plan.transform`` for one device.  Options of the
 reference that this port does not run yet raise NotImplementedError
@@ -33,7 +34,7 @@ from repro_torch.kernels import dwt as dwt_kernels
 from repro_torch.kernels import streaming as streaming_kernels
 
 __all__ = ["Transform", "Schedule", "plan", "clear_cache", "cache_stats",
-           "dense_table_bytes_limit", "IMPLS"]
+           "warm_bandwidths", "dense_table_bytes_limit", "IMPLS"]
 
 # impl="auto" resolves to "fused"; "reference" is the plain einsum oracle
 IMPLS = ("reference", "dense", "ragged", "onthefly", "fused")
@@ -47,7 +48,6 @@ _DEF_TK = 8
 _NOT_PORTED = {
     "mesh": "ROADMAP.md queue 1 item 8 (DistExecutor on torch.distributed)",
     "measure": "ROADMAP.md queue 1 item 7 (measured autotuning)",
-    "so3": "ROADMAP.md queue 1 item 6 (so3/: S^2 stage and correlation)",
 }
 
 
@@ -162,6 +162,9 @@ class Transform:
       forward_batch / inverse_batch  any request count, chunked onto the
                                      V-lane kernel launches (partial
                                      chunks zero-padded)
+      s2_forward / s2_inverse        the S^2 stage (repro_torch.so3.s2)
+      engine / correlate             rotational matching on this plan
+                                     (repro_torch.so3.CorrelationEngine)
 
     Inputs may be numpy arrays or tensors; they are moved to the plan's
     device.  Results are tensors on that device.  ``stats`` counts
@@ -332,21 +335,31 @@ class Transform:
             stats["transforms"] += n
             stats["padded_lanes"] += V - n
             outs.append(out[:n])
-        return torch.cat(outs, dim=0)
+        # one chunk: its output as it is, without a copy of every grid
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
-    # -- executors of the reference that wait for a later slice ---------
+    # -- executors: S^2 stage and correlation ---------------------------
 
-    def s2_forward(self, samples):
-        raise _not_ported("s2_forward", "so3")
+    def s2_forward(self, samples) -> torch.Tensor:
+        """S^2 analysis: samples (2B, 2B) -> coefficients (B, 2B-1) on
+        the plan's device."""
+        from repro_torch.so3 import s2
+        return s2.s2_analysis(samples, self.B, device=self.device)
 
-    def s2_inverse(self, flm):
-        raise _not_ported("s2_inverse", "so3")
+    def s2_inverse(self, flm) -> torch.Tensor:
+        """S^2 synthesis: coefficients (B, 2B-1) -> samples (2B, 2B) on
+        the plan's device."""
+        from repro_torch.so3 import s2
+        return s2.s2_synthesis(flm, device=self.device)
 
     def engine(self):
-        raise _not_ported("engine()", "so3")
+        """The rotational-matching engine bound to this plan (cached)."""
+        from repro_torch.so3.correlate import CorrelationEngine
+        return self._res("engine", lambda: CorrelationEngine(transform=self))
 
     def correlate(self, f, g, *, refine: bool = True):
-        raise _not_ported("correlate()", "so3")
+        """Rotation maximizing <f, Lambda(R) g> for one S^2 pair."""
+        return self.engine().match(f, g, refine=refine)
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +381,18 @@ def clear_cache() -> None:
     for k in _CACHE_STATS:
         _CACHE_STATS[k] = 0
     batched.clear_plan_cache()
+
+
+def warm_bandwidths() -> dict[int, int]:
+    """{B: count of memoized Transforms at that bandwidth} -- the
+    plan-cache-aware scheduling hook of the serving tier: a scheduler
+    (:class:`repro_torch.so3.SO3Service`) prefers bandwidths whose plans
+    are already built over cold ones that would stall a lane behind a
+    plan construction."""
+    out: dict[int, int] = {}
+    for t in _CACHE.values():
+        out[t.B] = out.get(t.B, 0) + 1
+    return out
 
 
 def cache_stats() -> dict:

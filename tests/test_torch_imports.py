@@ -26,6 +26,9 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.core, repro_torch.kernels, repro_torch.obs\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.launch\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.so3, repro_torch.so3.service\n"
+        "import repro_torch.launch.serve_so3, repro_torch.configs.soft\n"
+        "assert callable(repro_torch.plan.warm_bandwidths)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert callable(repro_torch.plan)\n"

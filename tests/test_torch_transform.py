@@ -206,12 +206,38 @@ def test_streaming_options_plan(kwargs):
         np.testing.assert_allclose(back, fhat, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("method", ["engine", "s2_forward", "correlate"])
-def test_unported_executors_raise(method):
-    t = tplan(4, device="cpu")
-    args = {"engine": (), "s2_forward": (None,), "correlate": (None, None)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(t, method)(*args[method])
+@pytest.mark.parametrize("method", ["engine", "s2_forward", "s2_inverse",
+                                    "correlate"])
+def test_so3_executors_match_reference(method):
+    """The S^2 stage and correlation executors of a plan against the
+    reference Transform's, on the same numpy inputs: S^2 transforms within
+    rtol 1e-12 / atol 1e-13, matches with the same grid index, angles
+    within 1e-9 rad and peak / score within rtol 1e-9."""
+    from repro.so3.s2 import rotate_s2_coeffs
+    B = 8
+    t = tplan(B, device="cpu", V=2)
+    j = jplan(B, V=2)
+    flm = tsoft.random_s2_coeffs(B, seed=4)
+    if method in ("s2_forward", "s2_inverse"):
+        x = np.asarray(j.s2_inverse(flm)) if method == "s2_forward" else flm
+        got = getattr(t, method)(x)
+        assert got.device == t.device
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(getattr(j, method)(x)),
+                                   rtol=1e-12, atol=1e-13)
+        return
+    f = rotate_s2_coeffs(flm, (0.7, 1.1, 2.9))
+    if method == "engine":
+        eng = t.engine()
+        assert eng is t.engine() and eng.transform is t
+        got, want = eng.match(f, flm), j.engine().match(f, flm)
+        assert eng.stats["launches"] == 1
+    else:
+        got, want = t.correlate(f, flm), j.correlate(f, flm)
+    assert got.index == want.index
+    np.testing.assert_allclose(got.euler, want.euler, rtol=0, atol=1e-9)
+    np.testing.assert_allclose([got.peak, got.score],
+                               [want.peak, want.score], rtol=1e-9)
 
 
 def test_bad_config_raises():
