@@ -101,7 +101,37 @@ Phases (any failure exits non-zero):
      (64, 128), lane_width=None): 40 requests by drain() and 40 by the
      background worker, exactly once, no shed / failure / retry, every
      result_key equal to direct execution, admission and deadline as
-     typed errors, latency p50 / p99, and the serve_so3 CLI at B = 128.
+     typed errors, latency p50 / p99, and the serve_so3 CLI at B = 128;
+  9. (every plan freed first) the distributed executor
+     (repro_torch.core.parallel): 9a. for n = 1, 2, 4 shards of the
+     mesh-ordered plans at B = 128 f64 V = 8 and B = 64 f32 V = 8, each
+     shard's dwt_fused / idwt_fused through make_fused_local_dwt / _idwt
+     against its plain version (TOL), shard 0 timed beside its bound, the
+     shards reassembled in the original cluster order against n = 1
+     (MESH_RTOL / MESH_ATOL, and whether bitwise); 9b. a one-rank NCCL
+     group (core.parallel.local_mesh) and plan(128, mesh=mesh,
+     axis=("data",)): single forward / inverse, inverse_batch(16) ->
+     forward_batch(16) at V = 8 under overlap "off" and "pipelined" with
+     the launch and all-to-all counts zeroed just before each and read
+     just after (exactly one local kernel launch and one all-to-all per
+     chunk and direction), the roundtrip within RT_GATES, within
+     MESH_RTOL / MESH_ATOL of plan(128)'s local transform, pipelined
+     torch.equal to off, ms per batch beside the local plan's, peak
+     memory against estimate_batch_bytes; 9c. 16 planted pairs through
+     the mesh plan's engine: one idwt_fused launch and one all-to-all a
+     group, every rotation within 1.5 pi / B, every result_key equal to
+     the mesh plan's V = 1 engine;
+ 10. measured tuning: plan(128, tune="measure"), plan(64, float32,
+     tune="measure") and plan(128, lchunk=16, tune="measure") on a fresh
+     cache (every candidate's time by CUDA events -- one V-lane chunk's
+     inverse and forward, per transform -- the winner beside the static
+     schedule and both plans' inverse_batch(8) / forward_batch(8)
+     times, each roundtrip at its gate), the launch counts of the sweeps
+     zeroed before and read after, every kernel shape the sweeps launched
+     (each (impl, V, tk)) against its plain version at TOL, a second
+     build that reads the cache
+     (autotune.cache.hit rises, no candidate span), keys naming cuda and
+     sm_90, and profile_so3 --bandwidth 16 --check.
 The line before the last is one JSON object {"kernels": [...]} (eleven
 kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
 the output directory OUT.
@@ -459,7 +489,7 @@ class Case:
     -- with ``subset`` -- a sorted subset of the clusters in launch order
     (perm None)."""
 
-    def __init__(self, B, dtype, V, *, seed, subset=None):
+    def __init__(self, B, dtype, V, *, seed, subset=None, tk=8):
         import torch
         from repro_torch.core import batched
         from repro_torch.kernels import dwt_fused as dfk, ops
@@ -469,7 +499,7 @@ class Case:
         self.dname = str(dtype).replace("torch.", "")
         plan = batched.build_plan(B, dtype=dtype, pad_to=8, streaming=True,
                                   device=dev)
-        tk = self.tk = min(8, plan.n_padded)
+        tk = self.tk = min(tk, plan.n_padded)
         seeds, m, mp, cb = ops.onthefly_inputs(plan)
         perm_np, l_start, l0s_np = ops.fused_metadata(plan, tk)
         if subset is not None:          # evenly spaced, still sorted
@@ -539,7 +569,8 @@ def fused_case(c: Case, *, time_it: bool):
     import torch
     from repro_torch.kernels import dwt_fused as dfk
 
-    tag = f"B={c.B:3d} {c.dname} V={c.V} K={c.shape[0]} J={c.shape[1]}"
+    tag = (f"B={c.B:3d} {c.dname} V={c.V} tk={c.tk} K={c.shape[0]} "
+           f"J={c.shape[1]}")
     recs, table = {}, None
     for name, x, kern, plain in (
             ("dwt_fused", c.rhs, dfk.dwt_fused, dfk.dwt_fused_plain),
@@ -587,8 +618,8 @@ def streaming_case(c: Case, lchunk: int, precision: str, *, time_it: bool):
     import torch
     from repro_torch.kernels import streaming as stk
 
-    tag = (f"B={c.B:3d} {c.dname} V={c.V} lchunk={lchunk} {precision} "
-           f"K={c.shape[0]}")
+    tag = (f"B={c.B:3d} {c.dname} V={c.V} tk={c.tk} lchunk={lchunk} "
+           f"{precision} K={c.shape[0]}")
     recs = {}
     wkw = dict(L=c.B, lchunk=lchunk, precision=precision)
     win = stk.build_windows(*c.args, **wkw)
@@ -2398,6 +2429,473 @@ def so3_service(pools) -> dict:
             | {k: cli.get(k) for k in ("latency_s", "grids_ready_s")}}
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: the distributed executor and the measured autotuner
+# ---------------------------------------------------------------------------
+
+MESH_B = 128                # phase 9's mesh plan (9b, 9c)
+MESH_V = 8
+MESH_BATCH = 16
+MESH_SHARDS = (1, 2, 4)     # the shard splits of phase 9a
+# a mesh plan against the local plan(B), and the reassembled shards against
+# the one-shard result: the reference's tolerance (tests/test_parallel.py)
+MESH_RTOL, MESH_ATOL = 1e-11, 1e-11
+# phase 10's measured plans: (label, B, dtype name, plan keywords)
+TUNE_PLANS = (("b128_f64", 128, "float64", {}),
+              ("b64_f32", 64, "float32", {}),
+              ("b128_f64_lchunk16", 128, "float64", {"lchunk": 16}))
+TUNE_PROFILE_B = 16
+
+
+def mesh_plan_of(B, dtype, n):
+    """The planner's mesh-ordered plan for n shards (pad_to = n, the
+    pad-aware shard-balanced deal), built without the dense table, and
+    its cluster order."""
+    import torch
+    from repro_torch.core import batched, clusters
+    l_start = clusters.build_cluster_table(B).rep[:, 0]
+    n_padded = -(-len(l_start) // n) * n
+    order = batched.shard_balanced_order(l_start, n, n_padded=n_padded)
+    return batched.build_plan(B, dtype=dtype, pad_to=n, order=order,
+                              streaming=True,
+                              device=torch.device(DEV)), order
+
+
+def shard_kernels(B, dtype, V, *, seed, time_it: bool) -> dict:
+    """9a: each shard's dwt_fused / idwt_fused through
+    make_fused_local_dwt / _idwt on the card, at the shapes a mesh of n
+    shards gives them (kloc = K/n clusters, the shared l0s schedule), held
+    to their plain versions (TOL); the shards reassembled in the original
+    cluster order against the n = 1 result (MESH_RTOL / MESH_ATOL, and
+    whether bitwise)."""
+    import torch
+    from repro_torch.core import parallel
+    from repro_torch.kernels import dwt_fused as dfk
+
+    dev = torch.device(DEV)
+    dname = str(dtype).replace("torch.", "")
+    n_cl = B * (B + 1) // 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rhs0 = torch.randn((n_cl, 2 * B, V * 16), generator=gen, device=dev,
+                       dtype=dtype)
+    lhs0 = torch.randn((n_cl, B, V * 16), generator=gen, device=dev,
+                       dtype=dtype)
+    first = {}
+    out = {"B": B, "dtype": dname, "V": V, "splits": {}}
+    for n in MESH_SHARDS:
+        plan, order = mesh_plan_of(B, dtype, n)
+        order_t = torch.as_tensor(order, device=dev)
+        meta = parallel.fused_shard_meta(plan, n)
+        m_all = meta.m.long()
+        # the operands of plan order: pad rows zero; lhs zero below m
+        rhs = rhs0.new_zeros((plan.n_padded,) + rhs0.shape[1:])
+        rhs[:n_cl] = rhs0[order_t]
+        lhs = lhs0.new_zeros((plan.n_padded,) + lhs0.shape[1:])
+        lhs[:n_cl] = lhs0[order_t]
+        lhs *= (torch.arange(B, device=dev)[None, :]
+                >= m_all[:, None])[..., None]
+        kloc = plan.n_padded // n
+        rec = {"kloc": kloc, "tk": meta.tk, "shards": n}
+        for name, local, x, plain in (
+                ("dwt_fused", parallel.make_fused_local_dwt(plan, n,
+                                                            meta=meta),
+                 rhs, dfk.dwt_fused_plain),
+                ("idwt_fused", parallel.make_fused_local_idwt(plan, n,
+                                                              meta=meta),
+                 lhs, dfk.idwt_fused_plain)):
+            parts, worst, tim = [], None, {}
+            for s in range(n):
+                ops = local.local_operands(s, n)
+                xs = x[s * kloc:(s + 1) * kloc].contiguous()
+                got = local.fn(*ops, xs)
+                want = plain(*ops, xs, meta.l0s_t, B=B, tk=meta.tk)
+                r = compare(name, f"B={B} {dname} V={V} n={n} shard {s} "
+                            f"K/n={kloc}", got, want, dname)
+                if worst is None or r["max_err_vs_plain"] > \
+                        worst["max_err_vs_plain"]:
+                    worst = r
+                if s == 0 and time_it:     # shard 0 stands for every rank
+                    tim["ms"] = cuda_ms(lambda: local.fn(*ops, xs), 5)
+                    tim["plain_ms"] = cuda_ms(
+                        lambda: plain(*ops, xs, meta.l0s_t, B=B, tk=meta.tk),
+                        1)
+                    rows = visited_rows(ops[1], meta.l0s_t, meta.tk, B)
+                    tim["bound_ms"], tim["bound_by"], _ = bound(
+                        name, ops[0], xs, got, rows, dname)
+                    log(f"    shard 0: kernel {tim['ms']:.4f} ms  plain "
+                        f"{tim['plain_ms']:.4f} ms  bound "
+                        f"{tim['bound_ms']:.4f} ms ({tim['bound_by']})")
+                parts.append(got)
+                del want
+            full = torch.cat(parts)
+            del parts
+            back = torch.empty_like(full[:n_cl])
+            back[order_t] = full[:n_cl]       # the original cluster order
+            del full
+            if n == 1:
+                first[name] = back
+                worst.update(bitwise_vs_n1=True, max_abs_vs_n1=0.0)
+            else:
+                same = bool(torch.equal(back, first[name]))
+                diff = float((back - first[name]).abs().max())
+                ok = bool(torch.allclose(back, first[name], rtol=MESH_RTOL,
+                                         atol=MESH_ATOL))
+                log(f"  {name} n={n}: shards reassembled vs n=1: max abs "
+                    f"{diff:.3e}{' bitwise' if same else ''}")
+                if not ok:
+                    fail(f"9a: {name} B={B} n={n}: the reassembled shards "
+                         f"differ from n=1 by {diff:.3e}")
+                worst.update(bitwise_vs_n1=same, max_abs_vs_n1=diff)
+                del back
+            rec[name] = {**worst, **tim}
+        out["splits"][f"n{n}"] = rec
+        del rhs, lhs, plan
+    del first
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_path(mesh, counts: dict) -> dict:
+    """9b: plan(128, mesh=, axis=("data",)): single forward / inverse, and
+    inverse_batch(16) -> forward_batch(16) at V = 8 under overlap "off"
+    and "pipelined", the launch and all-to-all counts zeroed just before
+    each mode and read just after (one local kernel launch and one
+    all-to-all per chunk and direction); roundtrip within RT_GATES; within
+    MESH_RTOL / MESH_ATOL of plan(128)'s local transform; pipelined
+    torch.equal to off; ms per batch beside the local plan's; peak memory
+    against estimate_batch_bytes."""
+    import torch
+    import repro_torch
+    from repro_torch.core import parallel
+
+    B, n = MESH_B, MESH_BATCH
+    t0 = time.perf_counter()
+    t = repro_torch.plan(B, mesh=mesh, axis=("data",))
+    build_s = time.perf_counter() - t0
+    d = t.describe()
+    log(f"  plan({B}, mesh): built in {build_s:.1f} s, impl={d['impl']} "
+        f"V={d['V']} tk={d['tk']} overlap={d['overlap']} n_shards="
+        f"{d['n_shards']} shard clusters {d['shard_clusters']} streaming="
+        f"{d['streaming']}")
+    if d["V"] != MESH_V or d["impl"] != "fused" or d["n_shards"] != 1:
+        fail(f"9b: the mesh plan resolved V={d['V']} impl={d['impl']}")
+    fhats = device_coeffs(B, n, 0, t.cdtype)
+    chunks = -(-n // MESH_V)
+    res = {"build_s": build_s, "modes": {}}
+    outs = {}
+    for mode in parallel.OVERLAP_MODES:
+        reset_all_launches()
+        parallel.reset_all_to_alls()
+        t.reset_stats()
+
+        def pair():
+            fs = t.inverse_batch(fhats, overlap=mode)
+            return fs, t.forward_batch(fs, overlap=mode)
+
+        (fs, backs), peak, before = peak_of(pair)
+        launches, a2a = all_launches(), dict(parallel.ALL_TO_ALLS)
+        counts[mode] = {"launches": launches, "all_to_alls": a2a}
+        others = {k: v for k, v in launches.items()
+                  if v and k not in ("dwt_fused", "idwt_fused")}
+        log(f"  overlap={mode}: launches {launches}, all-to-alls {a2a}, "
+            f"stats {t.stats}; peak {peak} bytes (before {before}) vs "
+            f"estimate_batch_bytes {d['batch_bytes']}")
+        if launches["dwt_fused"] != chunks or \
+                launches["idwt_fused"] != chunks or others or \
+                a2a != {"forward": chunks, "inverse": chunks}:
+            fail(f"9b {mode}: {chunks} chunks a direction took launches "
+                 f"{launches} and all-to-alls {a2a}")
+        worst = [roundtrip_metric(fhats[i], backs[i]) for i in range(n)]
+        abs_err, rel_err = max(w[0] for w in worst), max(w[1] for w in worst)
+        log(f"  roundtrip (worst of {n}): abs {abs_err:.3e} rel "
+            f"{rel_err:.3e}")
+        check_roundtrip(B, abs_err, rel_err)
+        res["modes"][mode] = {"roundtrip_abs": abs_err,
+                              "roundtrip_rel": rel_err, "peak_bytes": peak,
+                              "before_bytes": before}
+        outs[mode] = (fs, backs)
+        del fs, backs
+    same = [bool(torch.equal(outs["off"][i], outs["pipelined"][i]))
+            for i in range(2)]
+    log(f"  pipelined == off (torch.equal): inverse {same[0]}, forward "
+        f"{same[1]}")
+    if not all(same):
+        fail("9b: the pipelined batches differ from the serial ones")
+    fs, backs = outs.pop("off")
+    del outs
+    f0, b0 = t.inverse(fhats[0]), t.forward(fs[0])
+    loc = repro_torch.plan(B)
+    fs_loc = loc.inverse_batch(fhats)
+    backs_loc = loc.forward_batch(fs_loc)
+    diffs = {}
+    for what, a, b in (("inverse_batch", fs, fs_loc),
+                       ("forward_batch", backs, backs_loc),
+                       ("inverse", f0, fs_loc[0]),
+                       ("forward", b0, backs_loc[0])):
+        diffs[what] = {"max_abs": float((a - b).abs().max()),
+                       "bitwise": bool(torch.equal(a, b)),
+                       "allclose": bool(torch.allclose(
+                           a, b, rtol=MESH_RTOL, atol=MESH_ATOL))}
+        log(f"  mesh vs local plan({B}) {what}: max abs "
+            f"{diffs[what]['max_abs']:.3e}"
+            f"{' bitwise' if diffs[what]['bitwise'] else ''}")
+        if not diffs[what]["allclose"]:
+            fail(f"9b: the mesh plan's {what} is not within rtol "
+                 f"{MESH_RTOL:g} / atol {MESH_ATOL:g} of the local plan's")
+    del fs_loc, backs_loc, f0, b0
+    timing = {}
+    for mode in parallel.OVERLAP_MODES:
+        timing[f"mesh_{mode}_inverse_batch_ms"] = host_ms(
+            lambda: t.inverse_batch(fhats, overlap=mode), 2)
+        timing[f"mesh_{mode}_forward_batch_ms"] = host_ms(
+            lambda: t.forward_batch(fs, overlap=mode), 2)
+    timing["local_inverse_batch_ms"] = host_ms(
+        lambda: loc.inverse_batch(fhats), 2)
+    timing["local_forward_batch_ms"] = host_ms(
+        lambda: loc.forward_batch(fs), 2)
+    log("  ms per batch of 16 (host clock, synchronized): " + ", ".join(
+        f"{k[:-3]} {v:.2f}" for k, v in timing.items()))
+    res.update(vs_local=diffs, timing=timing, counts=counts,
+               estimate_bytes=d["batch_bytes"],
+               all_to_alls_per_chunk=1, pipelined_equals_off=all(same))
+    del t, loc, fhats, fs, backs
+    free_plans()
+    return res
+
+
+def mesh_matching(mesh, pairs, counts: dict) -> dict:
+    """9c: the planted pairs through plan(128, mesh=).engine().match_batch
+    (one idwt_fused launch and one all-to-all per group of V); every
+    rotation within 1.5 pi / B; every result_key equal to the mesh plan's
+    V = 1 engine's."""
+    import repro_torch
+    from repro_torch.core import parallel
+    from repro_torch.so3 import result_key
+
+    B = MESH_B
+    eng = repro_torch.plan(B, mesh=mesh, axis=("data",)).engine()
+    V = eng.lane_width
+    fs = [p[0] for p in pairs]
+    gs = [p[1] for p in pairs]
+    eng.match(fs[0], gs[0])
+    groups = -(-len(pairs) // V)
+    reset_all_launches()
+    parallel.reset_all_to_alls()
+    t0 = time.perf_counter()
+    results = eng.match_batch(fs, gs)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts.update(all_launches())
+    a2a = dict(parallel.ALL_TO_ALLS)
+    log(f"  match_batch({len(pairs)}) on the mesh plan V={V}: launches "
+        f"{counts}, all-to-alls {a2a}, {ms:.2f} ms (host clock)")
+    if counts["idwt_fused"] != groups or a2a != {"forward": 0,
+                                                 "inverse": groups}:
+        fail(f"9c: {len(pairs)} pairs took {counts['idwt_fused']} "
+             f"idwt_fused launches and {a2a} all-to-alls (want {groups})")
+    worst = max(recovery_steps(r, p[2], B) for r, p in zip(results, pairs))
+    e1 = repro_torch.plan(B, mesh=mesh, axis=("data",), V=1).engine()
+    same = [result_key(a) == result_key(e1.match(f, g))
+            for a, f, g in zip(results, fs, gs)]
+    log(f"  worst recovery {worst:.3f} grid steps (gate 1.5); result_key "
+        f"== the mesh plan's V = 1 engine for {sum(same)} of {len(same)}")
+    if not worst < 1.5 or not all(same):
+        fail(f"9c: recovery {worst:.3f} steps, equal keys {sum(same)} of "
+             f"{len(same)}")
+    del eng, e1
+    free_plans()
+    return {"V": V, "launches": dict(counts), "all_to_alls": a2a,
+            "worst_steps": worst, "batched_equals_direct": sum(same),
+            "match_batch_ms": ms}
+
+
+def sweep_vs_plain(B, dtype, lchunk, cands) -> dict:
+    """10: every kernel shape a measured sweep launched -- each distinct
+    (impl, V, tk) of its candidates, so the winner's too -- held to its
+    plain version at TOL on fresh operands of that shape: the fused pair
+    (fused_case), the streaming family (streaming_case, at the plan's
+    lchunk) or the on-the-fly pair.  Returns the worst per kernel."""
+    import torch
+    from repro_torch.kernels import wigner_rec as wr
+
+    worst = {}
+    for impl, V, tk in sorted({(c["impl"], c["V"], c["tk"]) for c in cands}):
+        c = Case(B, dtype, V, seed=B + 10 * V + tk, tk=tk)
+        if impl == "onthefly":
+            tag = f"B={B:3d} {c.dname} V={V} tk={tk} K={c.shape[0]}"
+            recs = {name: compare(name, tag, kern(*c.args, x, B=B, tk=tk),
+                                  plain(*c.args, x, B=B), c.dname)
+                    for name, x, kern, plain in (
+                        ("dwt_onthefly", c.rhs, wr.dwt_onthefly,
+                         wr.dwt_onthefly_plain),
+                        ("idwt_onthefly", c.lhs, wr.idwt_onthefly,
+                         wr.idwt_onthefly_plain))}
+        elif lchunk is not None:
+            recs = streaming_case(c, lchunk, "fp32", time_it=False)
+        else:
+            recs = fused_case(c, time_it=False)
+        for name, r in recs.items():
+            w = worst.setdefault(name, {"shapes": 0, "max_abs_err": 0.0,
+                                        "max_err_vs_plain": 0.0})
+            w["shapes"] += 1
+            w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
+            w["max_err_vs_plain"] = max(w["max_err_vs_plain"],
+                                        r["max_err_vs_plain"])
+        del c, recs
+        torch.cuda.empty_cache()
+    return worst
+
+
+def measured_tuning(counts: dict) -> dict:
+    """10: plan(128, tune="measure"), plan(64, float32, tune="measure")
+    and plan(128, lchunk=16, tune="measure") on a fresh cache, the launch
+    counts zeroed just before and read just after: every candidate
+    (impl, V, tk, ms per transform between CUDA events) and the winner
+    beside the static schedule; each measured plan's roundtrip at the
+    usual gates; every kernel shape the sweeps launched against its plain
+    version (sweep_vs_plain); a second build reads the cache
+    (autotune.cache.hit rises, no autotune.candidate span); the keys name
+    cuda and sm_90; profile_so3 --check at B = 16."""
+    import json as _json
+    import tempfile
+    import torch
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import profile_so3
+
+    rec = obs.Recorder()
+    old = obs.set_recorder(rec)
+    out = {"plans": {}}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = pathlib.Path(tmp) / "autotune.json"
+            reset_all_launches()
+            for label, B, dname, kw in TUNE_PLANS:
+                dtype = getattr(torch, dname)
+                n0 = len(rec.events())
+                t0 = time.perf_counter()
+                t = repro_torch.plan(B, dtype, tune="measure",
+                                     tune_cache=cache, **kw)
+                build_s = time.perf_counter() - t0
+                cands = []
+                for e in rec.events()[n0:]:
+                    if e["name"] != "autotune.candidate":
+                        continue
+                    a = e["args"]
+                    if a["clock"] != "cuda_events":
+                        fail(f"10: candidate {a} timed on the {a['clock']} "
+                             f"clock")
+                    cands.append({"impl": a["key"].split("/")[0],
+                                  "V": a["V"], "tk": a["tk"], "tl": a["tl"],
+                                  "ms_per_transform":
+                                  a["per_call_s"] / a["V"] * 1e3})
+                s = t.schedule
+                t_static = repro_torch.plan(B, dtype, **kw)
+                st = t_static.schedule
+                args = "".join(f", {k}={v}" for k, v in kw.items())
+                log(f"  plan({B}, {dname}, tune='measure'{args}): "
+                    f"{len(cands)} candidates in {build_s:.1f} s")
+                for c in cands:
+                    log(f"    {c['impl']:9s} V={c['V']} tk={c['tk']:2d}: "
+                        f"{c['ms_per_transform']:.4f} ms per transform "
+                        f"(a chunk's inverse + forward / V)")
+                log(f"    winner {s.impl} V={s.V} tk={s.tk} "
+                    f"{s.per_transform_s * 1e3:.4f} ms per transform; static "
+                    f"schedule {st.impl} V={st.V} tk={st.tk}")
+                if s.source != "measured" or not cands:
+                    fail(f"10: plan({B}) resolved source={s.source}")
+                fhats = device_coeffs(B, s.V, 1, t.cdtype)
+                backs = t.forward_batch(t.inverse_batch(fhats))
+                worst = [roundtrip_metric(fhats[i], backs[i])
+                         for i in range(s.V)]
+                abs_err = max(w[0] for w in worst)
+                rel_err = max(w[1] for w in worst)
+                log(f"    roundtrip (worst of {s.V}): abs {abs_err:.3e} rel "
+                    f"{rel_err:.3e}")
+                if dtype == torch.float32:
+                    bnd = autotune.FP32_ROUNDTRIP_BOUNDS[B]
+                    if not rel_err <= bnd:
+                        fail(f"10: plan({B}, float32) roundtrip rel "
+                             f"{rel_err:.3e} over {bnd:g}")
+                else:
+                    check_roundtrip(B, abs_err, rel_err)
+                # does the kernel-level winner move the transform? 8
+                # requests through each plan, host clock
+                fh8 = device_coeffs(B, 8, 2, t.cdtype)
+                e2e = {}
+                for which, tt in (("measured", t), ("static", t_static)):
+                    fs8 = tt.inverse_batch(fh8)
+                    e2e[which] = {
+                        "inverse_batch8_ms": host_ms(
+                            lambda: tt.inverse_batch(fh8), 2),
+                        "forward_batch8_ms": host_ms(
+                            lambda: tt.forward_batch(fs8), 2)}
+                    del fs8
+                log("    inverse_batch(8) / forward_batch(8): " + ", ".join(
+                    f"{k} {v['inverse_batch8_ms']:.2f} / "
+                    f"{v['forward_batch8_ms']:.2f} ms" for k, v in e2e.items())
+                    + " (host clock, synchronized)")
+                out["plans"][label] = {
+                    "build_s": build_s, "candidates": cands,
+                    "winner": {"impl": s.impl, "V": s.V, "tk": s.tk,
+                               "ms_per_transform": s.per_transform_s * 1e3},
+                    "static": {"impl": st.impl, "V": st.V, "tk": st.tk},
+                    "roundtrip_abs": abs_err, "roundtrip_rel": rel_err,
+                    "batch8_ms": e2e}
+                del t, t_static, fhats, backs, fh8
+                free_plans()
+            counts.update(all_launches())
+            log(f"  launches of the measured builds and roundtrips: {counts}")
+            for name in ("dwt_fused", "dwt_onthefly", "dwt_streaming"):
+                if counts.get(name, 0) < 1:
+                    fail(f"10: kernel {name} never launched by the sweeps")
+            # after the counts: these launches only compare
+            for label, B, dname, kw in TUNE_PLANS:
+                pl = out["plans"][label]
+                log(f"  {label}: the sweep's kernel shapes against their "
+                    f"plain versions")
+                pl["vs_plain"] = sweep_vs_plain(
+                    B, getattr(torch, dname), kw.get("lchunk"),
+                    pl["candidates"])
+                for name, w in pl["vs_plain"].items():
+                    log(f"    {name}: {w['shapes']} shapes, worst rel "
+                        f"{w['max_err_vs_plain']:.3e} (tol "
+                        f"{TOL[dname]:g})")
+            keys = sorted(_json.loads(cache.read_text()))
+            backend = autotune.backend_name(torch.device(DEV))
+            log(f"  cache keys: {keys}")
+            if not keys or not all(f"/{backend}/" in k for k in keys) or \
+                    not backend.startswith("cuda-sm90"):
+                fail(f"10: cache keys {keys} do not name {backend} (sm_90)")
+            hits, n0 = rec.counter("autotune.cache.hit"), len(rec.events())
+            repro_torch.plan(TUNE_PLANS[0][1], tune="measure",
+                             tune_cache=cache)
+            again = [e for e in rec.events()[n0:]
+                     if e["name"] == "autotune.candidate"]
+            log(f"  second build: autotune.cache.hit {hits} -> "
+                f"{rec.counter('autotune.cache.hit')}, {len(again)} "
+                f"candidate spans")
+            if rec.counter("autotune.cache.hit") <= hits or again:
+                fail("10: the second measured build did not read the cache")
+            out.update(cache_keys=keys, backend=backend,
+                       launches=dict(counts))
+            free_plans()
+    finally:
+        obs.set_recorder(old)
+    log(f"  profile_so3 --bandwidth {TUNE_PROFILE_B} --check")
+    trace = OUT / f"trace_profile_so3_b{TUNE_PROFILE_B}.json"
+    try:
+        rc = profile_so3.main(["--bandwidth", str(TUNE_PROFILE_B), "--check",
+                               "--trace", str(trace)])
+    except SystemExit as e:
+        rc = e.code
+    if rc != 0:
+        fail(f"10: profile_so3 --check returned {rc}")
+    out["profile_so3_rc"] = rc
+    free_plans()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2602,8 +3100,33 @@ def main() -> int:
     free_plans()       # the service builds its plans in its warmup
     log(f"  8c. service: SO3Service(bandwidths={SO3_MIX}, lane_width=None)")
     service_res = so3_service(pools)
+    mesh_pairs = pools[MESH_B]
     del pools
     free_plans()
+
+    log("== 9a. shard kernels: make_fused_local_dwt / _idwt on each shard of "
+        f"n in {MESH_SHARDS}")
+    shards = {"b128_f64": shard_kernels(128, torch.float64, 8, seed=1290,
+                                        time_it=True),
+              "b64_f32": shard_kernels(64, torch.float32, 8, seed=649,
+                                       time_it=True)}
+    from repro_torch.core import parallel
+    # a one-rank NCCL group on the card, destroyed when the block ends
+    with parallel.local_mesh(1, torch.device(DEV, 0)) as mesh:
+        log(f"== 9b. one-rank NCCL mesh: plan({MESH_B}, mesh=..., "
+            f"axis=('data',)), inverse_batch({MESH_BATCH}) -> forward_batch")
+        mesh_counts = {}
+        mesh_res = mesh_path(mesh, mesh_counts)
+        log(f"== 9c. matching on the mesh plan: {len(mesh_pairs)} planted "
+            f"pairs")
+        mesh_match_counts = {}
+        mesh_match = mesh_matching(mesh, mesh_pairs, mesh_match_counts)
+        free_plans()
+    del mesh_pairs
+
+    log("== 10. measured tuning: plan(tune='measure')")
+    tune_counts = {}
+    tuned = measured_tuning(tune_counts)
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
@@ -2663,7 +3186,22 @@ def main() -> int:
             "launches_b256_single": counts256.get(name, 0),
             "launches_so3_match_batch16": so3_counts.get(name, 0),
             "launches_b512_single": r512["launches"].get(name, 0),
+            "launches_mesh_b128_off": mesh_counts["off"]["launches"].get(
+                name, 0),
+            "launches_mesh_b128_pipelined":
+                mesh_counts["pipelined"]["launches"].get(name, 0),
+            "launches_mesh_match_batch16": mesh_match_counts.get(name, 0),
+            "launches_measured_tuning": tune_counts.get(name, 0),
         })
+        if name in ("dwt_fused", "idwt_fused"):
+            kernels[-1]["more"].update({
+                f"mesh_shard_{label}_{split}": {
+                    k: rec[name].get(k) for k in (
+                        "max_err_vs_plain", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "bitwise_vs_n1", "max_abs_vs_n1")}
+                | {"kloc": rec["kloc"], "tk": rec["tk"]}
+                for label, res in shards.items()
+                for split, rec in res["splits"].items()})
     summary = {"main_path_b128_v8": timing, "streaming_path_b128": stiming,
                "schedules_path_b128": sched,
                "b256_single_roundtrip_ms": ms256,
@@ -2683,6 +3221,10 @@ def main() -> int:
                "so3_b128": {"s2": s2_res, "engine": engine_res,
                             "service": service_res,
                             "s2_tol": [S2_RTOL, S2_ATOL]},
+               "shard_kernels": shards, "mesh_b128": mesh_res,
+               "mesh_matching_b128": mesh_match,
+               "mesh_tol": [MESH_RTOL, MESH_ATOL],
+               "measured_tuning": tuned,
                "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke_summary.json").write_text(json.dumps(

@@ -1,3 +1,4 @@
 """Core library of the port: the clustered FSOFT / iFSOFT on torch and
 the numpy host tables it is built from."""
-from . import batched, clusters, indexing, quadrature, soft, wigner  # noqa: F401
+from . import (batched, clusters, indexing, parallel, quadrature,  # noqa: F401
+               soft, wigner)

@@ -32,7 +32,8 @@ from . import quadrature, wigner
 
 __all__ = ["SoftPlan", "build_plan", "soft_plan_from_arrays",
            "resolve_device", "plan_cache_stats", "clear_plan_cache",
-           "plan_memo", "plan_lstart",
+           "plan_memo", "plan_lstart", "shard_balanced_order",
+           "shard_lstart",
            "bucket_boundaries_from_lstart", "bucket_boundaries",
            "make_bucketed_dwt_fn",
            "fft_analysis", "fft_synthesis",
@@ -301,6 +302,55 @@ def plan_lstart(plan: SoftPlan) -> np.ndarray:
     l_start = np.full(plan.n_padded, plan.B - 1, np.int32)
     l_start[: plan.n_clusters] = plan.table.rep[:, 0]
     return l_start
+
+
+def shard_balanced_order(l_start: np.ndarray, n_shards: int,
+                         n_padded: int | None = None) -> np.ndarray:
+    """Cluster permutation whose contiguous 1/n-th blocks (what each rank
+    of a mesh owns) are (a) work-balanced across shards and (b)
+    extent-sorted within each shard: the extent-sorted clusters are dealt
+    round-robin (the paper's balanced static schedule) and shard s's hand
+    is laid out as global block s.
+
+    n_padded: the cluster count after build_plan's pad_to padding.  Pad
+    rows are appended at the global end, in the tail of the last
+    shard(s); sizing the hands by it keeps every shard boundary on a hand
+    boundary, so each block stays extent-sorted (pad rows carry
+    l_start = B-1 and no work)."""
+    K = len(l_start)
+    work_sorted = np.argsort(l_start, kind="stable")  # ascending m = desc work
+    if n_padded is None or n_padded == K:
+        return np.concatenate([work_sorted[s::n_shards]
+                               for s in range(n_shards)]).astype(np.int64)
+    if n_padded % n_shards:
+        raise ValueError(f"n_padded={n_padded} % n_shards={n_shards}")
+    kloc = n_padded // n_shards
+    # real-cluster capacity per hand: pad rows fill the last shards' tails
+    sizes = [kloc] * n_shards
+    rem = n_padded - K
+    s = n_shards - 1
+    while rem > 0:
+        take = min(kloc, rem)
+        sizes[s] -= take
+        rem -= take
+        s -= 1
+    hands: list[list[int]] = [[] for _ in range(n_shards)]
+    idx = 0
+    for c in work_sorted:
+        while len(hands[idx % n_shards]) >= sizes[idx % n_shards]:
+            idx += 1            # this hand is full of real clusters
+        hands[idx % n_shards].append(int(c))
+        idx += 1
+    return np.concatenate(hands).astype(np.int64)
+
+
+def shard_lstart(plan: SoftPlan, n_shards: int) -> np.ndarray:
+    """(n_shards, kloc) per-shard l-start blocks in the contiguous layout
+    each rank owns.  With :func:`shard_balanced_order` every row ascends
+    in l-start, which the per-local-tile l0 schedules
+    (``core.parallel.fused_shard_meta``, :func:`bucket_boundaries_from_lstart`)
+    rely on."""
+    return plan_lstart(plan).reshape(n_shards, plan.n_padded // n_shards)
 
 
 def bucket_boundaries_from_lstart(l_start: np.ndarray, n_shards: int,

@@ -1,5 +1,7 @@
-"""Static schedule rules of the port (the static subset of
-``repro/kernels/autotune.py``).
+"""Schedule rules of the port: the static rules and the measured sweep
+of ``repro/kernels/autotune.py``.
+
+Static rules:
 
   * :data:`PRECISION_ERROR_BOUNDS` / :data:`FP32_ROUNDTRIP_BOUNDS` -- the
     reference's accuracy gates, copied as they are.
@@ -9,19 +11,41 @@
     lane slice is :func:`lane_slice`) and of
     the table kernels (dense, ragged; ``dwt_dense_smem_bytes`` in
     ``csrc/dwt_dense.cu``) asks for, checked against the 227 KB a Hopper
-    block may use.  They replace the TPU's VMEM estimate and 12 MiB
-    guard.
+    block may use (:func:`schedule_smem_bytes` for a whole schedule).
+    They replace the TPU's VMEM estimate and 12 MiB guard.
   * :func:`static_lane_width` -- the ``V="auto"`` rule: the widest of
     1/2/4/8 lanes whose batch buffers fit half the device memory.
   * :func:`static_precision` / :func:`static_lchunk` -- the precision and
     l-chunk rules of the streaming kernels: ``precision=None`` is always
     fp32, and a schedule streams only when asked to (``lchunk``, bf16).
+  * :func:`static_overlap` -- the distributed batch mode of a mesh plan.
+
+The measured sweep (``plan(tune="measure")``):
+
+  * :func:`autotune_dwt` times every (tk, tl, V) candidate of
+    :func:`candidate_tiles` by one V-lane chunk of the plan's transform,
+    inverse then forward (a mesh plan's: the local kernel on one shard)
+    -- on the card between CUDA events, on the CPU on the host clock --
+    and caches the winner on disk
+    (:func:`cache_path`, $REPRO_AUTOTUNE_CACHE) under a key
+    (:func:`_key`) naming the shape, the card (``cuda-sm90-<name>``, or
+    ``cpu``), the budgets (``M<smem>-<memory>``), the mesh shard count,
+    the overlap mode, the l-chunk and the precision.  Candidates over the
+    shared-memory or memory budget are skipped before any launch.
+  * :func:`autotune_overlap` times a mesh plan's ``inverse_batch`` under
+    both overlap modes; :func:`tuned_dwt_fn` / :func:`tuned_idwt_fn`
+    build kernels from the sweep's winner.
 """
 from __future__ import annotations
 
+import json
+import logging
 import os
+import pathlib
 
 import torch
+
+from repro_torch import obs
 
 __all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
            "PRECISION_BOUND_EXTRAPOLATED", "FP32_ROUNDTRIP_BOUNDS",
@@ -30,7 +54,12 @@ __all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
            "dense_smem_bytes", "table_bytes", "window_bytes",
            "estimate_batch_bytes",
            "dense_table_host_bytes", "device_memory_bytes",
-           "static_lane_width", "static_precision", "static_lchunk"]
+           "static_lane_width", "static_precision", "static_lchunk",
+           "schedule_smem_bytes", "memory_budget_bytes", "backend_name",
+           "static_overlap", "cache_path", "candidate_tiles", "autotune_dwt",
+           "autotune_overlap", "tuned_dwt_fn", "tuned_idwt_fn"]
+
+_LOG = logging.getLogger(__name__)
 
 # "fp32": the plan dtype throughout (chunked == monolithic bit for bit);
 # "bf16": bf16 window storage and Wigner rows, plan-dtype state and sums.
@@ -177,7 +206,8 @@ def window_bytes(B: int, K: int, lchunk: int | None, precision: str,
 
 def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
                          lchunk: int | None = None,
-                         precision: str = "fp32", table: bool = False) -> int:
+                         precision: str = "fp32", table: bool = False,
+                         whole_grids: bool | None = None) -> int:
     """Device bytes live at the peak of one V-lane batch call, counted
     from core.batched's buffers (the forward and the inverse hold the
     same set):
@@ -195,7 +225,9 @@ def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
         (2B+1)^2 x J/4 complex values (FFT outputs, gathered members,
         scatter buffers); a plan with it runs them on whole grids, two
         grids (the FFT output and its stacked copy) and two member
-        stacks (the reflected gather and its weighted copy)."""
+        stacks (the reflected gather and its weighted copy).
+        ``whole_grids`` overrides the table's choice: a mesh plan's
+        executor runs whole grids with or without the table."""
     c = 2 * itemsize                             # one complex value
     J = 2 * B
     grid = (2 * B) ** 3 * c
@@ -203,7 +235,8 @@ def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
     wide = K * J * 16 * itemsize                 # rhs / g
     narrow = K * B * 16 * itemsize               # out / lhs
     slab = (2 * B + 1) ** 2 * -(-J // 4) * c
-    temps = 2 * grid + 2 * wide if table else 5 * slab
+    whole = table if whole_grids is None else whole_grids
+    temps = 2 * grid + 2 * wide if whole else 5 * slab
     per = grid + coeffs + wide + narrow + temps + (wide if V > 1 else 0)
     return 2 * K * J * itemsize + window_bytes(B, K, lchunk, precision,
                                                itemsize) \
@@ -227,13 +260,14 @@ def device_memory_bytes(device: torch.device) -> int:
 
 def static_lane_width(B: int, K: int, itemsize: int,
                       device: torch.device, *, lchunk: int | None = None,
-                      precision: str = "fp32", table: bool = False) -> int:
+                      precision: str = "fp32", table: bool = False,
+                      whole_grids: bool | None = None) -> int:
     """The V="auto" rule (:data:`V_RULE`)."""
     budget = device_memory_bytes(device) // 2
     fits = [v for v in V_CANDIDATES
             if estimate_batch_bytes(B, K, v, itemsize, lchunk=lchunk,
-                                    precision=precision,
-                                    table=table) <= budget]
+                                    precision=precision, table=table,
+                                    whole_grids=whole_grids) <= budget]
     return max(fits) if fits else 1
 
 
@@ -273,3 +307,351 @@ def static_lchunk(*, B: int, itemsize: int, precision: str) -> int | None:
             f"and {smem} <= {SMEM_LIMIT_BYTES} bytes of shared memory, "
             f"whatever the l-chunk")
     return B if precision == "bf16" else None
+
+
+def schedule_smem_bytes(impl: str, B: int, V: int, itemsize: int, *,
+                        lchunk: int | None = None, tl: int | None = None
+                        ) -> int:
+    """Shared memory of the largest block a schedule launches: the
+    recurrence kernels' (forward at its l-chunk, and inverse) or the table
+    kernels' (the forward over ``tl`` degrees when ragged, and the
+    inverse); 0 for the einsum oracle."""
+    if impl in ("fused", "onthefly"):
+        return max(estimate_smem_bytes(
+            2 * B, itemsize, inverse=inv, C2=V * 16,
+            L=lchunk if lchunk is not None and not inv else B)
+            for inv in (False, True))
+    if impl in ("dense", "ragged"):
+        spans = ((B if tl is None or impl != "ragged" else tl, False),
+                 (2 * B, True))
+        return max(dense_smem_bytes(sp, V * 16, itemsize, inverse=inv)
+                   for sp, inv in spans)
+    return 0
+
+
+def memory_budget_bytes(device: torch.device) -> int:
+    """The batch buffers' budget of :data:`V_RULE`: half the device's
+    memory."""
+    return device_memory_bytes(device) // 2
+
+
+def static_overlap(n_shards: int) -> str:
+    """Static rule for the distributed batch mode (``Schedule.overlap``):
+    mesh plans of more than one shard pipeline (every chunk's all-to-all
+    can hide behind a neighbouring chunk's local kernel); one shard has
+    no collective worth hiding, so it stays "off"."""
+    return "pipelined" if n_shards > 1 else "off"
+
+
+# ---------------------------------------------------------------------------
+# the measured sweep
+# ---------------------------------------------------------------------------
+
+_DEF_CACHE = "~/.cache/repro_torch/autotune.json"
+
+
+def cache_path() -> pathlib.Path:
+    return pathlib.Path(os.environ.get("REPRO_AUTOTUNE_CACHE",
+                                       _DEF_CACHE)).expanduser()
+
+
+def _load_cache(path: pathlib.Path) -> dict:
+    try:
+        return json.loads(path.read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def _store_cache(path: pathlib.Path, entries: dict) -> None:
+    """Merge ``entries`` into the on-disk cache atomically: re-read before
+    writing, write a file of a unique name, rename it over the cache, so
+    concurrent sweeps keep each other's keys."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    merged = {**_load_cache(path), **entries}
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(json.dumps(merged, indent=1, sort_keys=True))
+    tmp.replace(path)
+
+
+def _divisors_leq(n: int, cands, fallback: int = 1) -> list[int]:
+    out = [c for c in cands if c <= n and n % c == 0]
+    return out or [fallback]
+
+
+def candidate_tiles(K: int, L: int, J: int, impl: str) -> list[dict]:
+    """Small exhaustive candidate set per schedule: the recurrence
+    schedules tile only the cluster axis; the ragged one also the degree
+    axis of its work list.  The port's kernels have no beta tile, so tj
+    is always J, and the dense schedule has no degree tile to set (tl =
+    L)."""
+    tks = _divisors_leq(K, (4, 8, 16, 32))
+    if tks == [1]:
+        # no primary tile divides K (common for per-rank cluster shards
+        # of a mesh plan): fall back to the smaller divisors
+        tks = _divisors_leq(K, (2, 3, 6))
+    tls = _divisors_leq(L, (8, 16, 32, 64, 128), fallback=L) \
+        if impl == "ragged" else [L]
+    return [{"tk": tk, "tl": tl, "tj": J} for tk in tks for tl in tls]
+
+
+def backend_name(device: torch.device) -> str:
+    """The ``{backend}`` key segment: ``cuda-sm<major><minor>-<card name>``
+    for a CUDA device, ``cpu`` otherwise."""
+    if device.type != "cuda":
+        return "cpu"
+    major, minor = torch.cuda.get_device_capability(device)
+    name = torch.cuda.get_device_name(device).replace(" ", "_")
+    return f"cuda-sm{major}{minor}-{name}"
+
+
+def _key(plan, impl: str, V, n_shards: int = 1, overlap: str = "off",
+         lchunk: int | None = None, precision: str = "fp32") -> str:
+    # the budgets are part of the key: a winner measured where the
+    # per-block shared memory or half the device memory ruled wide
+    # candidates out must not be served where they fit, and vice versa.
+    # The mesh shard count keys the per-rank cluster problem, /O the
+    # distributed mode, /L (0 = monolithic) and /P the streaming kernel.
+    dname = str(plan.dtype).replace("torch.", "")
+    limit = f"{SMEM_LIMIT_BYTES}-{memory_budget_bytes(plan.device)}"
+    return (f"{impl}/B{plan.B}/K{plan.n_padded}/{dname}"
+            f"/{backend_name(plan.device)}/V{V}/M{limit}/S{n_shards}"
+            f"/O{overlap}/L{lchunk or 0}/P{precision}")
+
+
+def _local_shard_timer(plan, tk: int, n_shards: int):
+    """Timing closure for the local fused kernel of one cluster shard:
+    shard 0's seed / order block stands in for every rank (the
+    shard-balanced order makes the blocks work-identical, and the l0s
+    schedule is the min over all shards)."""
+    from repro_torch.core import parallel   # deferred: core imports kernels
+
+    from . import dwt_fused as dfk
+
+    meta = parallel.fused_shard_meta(plan, n_shards, tk)
+    kloc = plan.n_padded // n_shards
+    seeds = meta.seeds[:kloc]
+    m, mp, cb, l0s = meta.m[:kloc], meta.mp[:kloc], meta.cb, meta.l0s_t
+
+    def fn(rhs):
+        return dfk.dwt_fused(seeds, m, mp, cb, rhs, l0s, B=plan.B, tk=tk)
+
+    return fn
+
+
+def _chunk_timer(plan, impl: str, tile: dict, V: int, lchunk, precision):
+    """Timing closure for one V-lane chunk of the transform a plan of this
+    schedule runs: ``inverse_clustered_batch`` then
+    ``forward_clustered_batch`` with the candidate's kernels, so the FFT,
+    the gather / scatter and the lane packing are scored with the kernel
+    (the ragged grid inverts on the dense kernel, as its plans do)."""
+    from repro_torch.core import batched    # deferred: core imports kernels
+
+    from . import ops
+
+    kw = dict(tk=tile["tk"], tl=tile["tl"], lchunk=lchunk,
+              precision=precision, batch=V)
+    fwd = ops.make_dwt_fn(plan, impl, **kw)
+    inv = ops.make_idwt_fn(plan, "dense" if impl == "ragged" else impl, **kw)
+
+    def fn(fhats):
+        grids = batched.inverse_clustered_batch(plan, fhats, idwt_fn=inv)
+        return batched.forward_clustered_batch(plan, grids, dwt_fn=fwd)
+
+    return fn
+
+
+def _candidate_fits(plan, impl, V, tile, n_shards, lchunk, precision,
+                    itemsize) -> bool:
+    """The shared-memory and memory budgets, checked before any launch."""
+    if schedule_smem_bytes(impl, plan.B, V, itemsize, lchunk=lchunk,
+                           tl=tile["tl"]) > SMEM_LIMIT_BYTES:
+        return False
+    need = estimate_batch_bytes(plan.B, plan.n_padded // n_shards, V,
+                                itemsize, lchunk=lchunk, precision=precision,
+                                table=not plan.streaming,
+                                whole_grids=True if n_shards > 1 else None)
+    return need <= memory_budget_bytes(plan.device)
+
+
+def autotune_dwt(plan, impl: str = "fused", *, Vs=(1,), reps: int = 3,
+                 refresh: bool = False, cache: str | os.PathLike | None = None,
+                 n_shards: int = 1, lchunk: int | None = None,
+                 precision: str = "fp32") -> dict:
+    """Measure-and-cache the best (tk, tl, tj, V) of one schedule.
+
+    Returns {"tk", "tl", "tj", "V", "per_transform_s"}.  Sweeps the
+    candidate tiles for every V in Vs (V > 1 packs V transforms onto the
+    kernel's lane axis) and scores each by one V-lane chunk of the
+    plan's transform, an inverse and a forward (:func:`_chunk_timer`),
+    per transform.  The reference times the forward kernel's closure
+    alone; on the card that closure's lane-pack copy outweighs the
+    chunk's batching and picked V = 1, which lost end to end to the
+    static V.  On a CUDA plan every candidate is timed between CUDA
+    events (:func:`repro_torch.obs.time_fn`), each recorded as an
+    ``autotune.candidate`` span.
+
+    n_shards > 1 tunes a mesh plan's local problem: candidates tile the
+    per-rank cluster shard (kloc = K/n), and the timed kernel is the
+    fused local kernel on shard 0's block, on operands already in its
+    lane layout (only the recurrence family runs in the sharded paths).
+
+    Candidates over the per-block shared memory (:data:`SMEM_LIMIT_BYTES`)
+    or over half the device memory (:func:`estimate_batch_bytes`) are
+    skipped before any launch; a candidate that raises is skipped too,
+    counted (``autotune.candidate.failed``) and logged.
+    """
+    if n_shards > 1 and impl not in ("onthefly", "fused"):
+        raise ValueError(
+            f"per-mesh autotuning times the fused local kernel; impl must "
+            f"be 'onthefly' or 'fused', got {impl!r}")
+    if (lchunk is not None or precision == "bf16") and n_shards > 1:
+        raise ValueError(
+            "streaming schedules (lchunk/bf16) are not wired into the "
+            "sharded executor; tune them at n_shards=1")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r} not in {PRECISIONS}")
+    path = pathlib.Path(cache) if cache is not None else cache_path()
+    store = _load_cache(path)
+    key = _key(plan, impl, tuple(Vs) if len(Vs) > 1 else Vs[0], n_shards,
+               lchunk=lchunk, precision=precision)
+    if not refresh and key in store:
+        obs.inc("autotune.cache.hit")
+        return store[key]
+    obs.inc("autotune.cache.miss")
+
+    L, J = plan.B, 2 * plan.B
+    K_eff = plan.n_padded // n_shards       # the per-rank cluster problem
+    C = plan.gather_m.shape[1]
+    itemsize = torch.empty((), dtype=plan.dtype).element_size()
+    gen = torch.Generator(device=plan.device).manual_seed(0)
+    best = None
+    n_skipped = n_failed = 0
+    cands = candidate_tiles(K_eff, L, J, impl)
+    with obs.span("autotune.sweep", key=key, impl=impl, n_shards=n_shards):
+        for V in Vs:
+            tiles = [t for t in cands
+                     if _candidate_fits(plan, impl, V, t, n_shards, lchunk,
+                                        precision, itemsize)]
+            n_skipped += len(cands) - len(tiles)
+            if not tiles:
+                continue
+            if n_shards > 1:
+                x = torch.randn((K_eff, J, V * C * 2), generator=gen,
+                                dtype=plan.dtype, device=plan.device)
+            else:               # coefficients of V requests
+                x = torch.randn((V, L, J - 1, J - 1), generator=gen,
+                                dtype=plan.cdtype, device=plan.device)
+            for tile in tiles:
+                try:
+                    if n_shards > 1:
+                        run = _local_shard_timer(plan, tile["tk"], n_shards)
+                    else:
+                        run = _chunk_timer(plan, impl, tile, V, lchunk,
+                                           precision)
+                    t = obs.time_fn(run, x, reps=reps,
+                                    name="autotune.candidate",
+                                    device=plan.device, key=key, V=V,
+                                    **tile) / V
+                except Exception as e:  # the kernel rejected the tiling
+                    n_failed += 1
+                    obs.inc("autotune.candidate.failed")
+                    _LOG.warning("autotune %s: candidate V=%d %s failed: %r",
+                                 key, V, tile, e)
+                    continue
+                if best is None or t < best["per_transform_s"]:
+                    best = dict(tile, V=V, per_transform_s=t)
+            del x
+    if best is None:
+        raise RuntimeError(
+            f"no viable tiling for {key} ({n_skipped} candidates over the "
+            f"shared-memory or memory budget, {n_failed} failed)")
+    _store_cache(path, {key: best})
+    return best
+
+
+def autotune_overlap(plan, mesh, axis, *, V: int = 1, tk: int | None = None,
+                     n_chunks: int = 4, reps: int = 3, refresh: bool = False,
+                     cache: str | os.PathLike | None = None) -> dict:
+    """Measure-and-cache the distributed batch mode: time an
+    n_chunks-deep lane-packed ``inverse_batch`` under overlap="off" and
+    "pipelined" on the real mesh and return the faster as
+    {"overlap", "per_transform_s"}.
+
+    Each mode is cached under its own ``/O{mode}`` key segment plus a
+    ``/T{tk}`` suffix naming the fused local kernel's cluster tile.  The
+    ranks of the shard group act as one: the first rank's cache decides
+    what is measured, every rank runs the timed batches (they hold
+    collectives), and the first rank's times are the result on every
+    rank."""
+    from repro_torch.core import parallel   # deferred: core imports kernels
+
+    axis = parallel.mesh_axes(axis)
+    n_shards = parallel.mesh_shards(mesh, axis)
+    group = parallel.shard_group(mesh, axis)
+    first = torch.distributed.get_rank(group) == 0
+    path = pathlib.Path(cache) if cache is not None else cache_path()
+    store = _load_cache(path)
+    K, L = plan.n_padded, plan.B
+    C = plan.gather_m.shape[1]
+    # meta resolves the default tk, which is part of the key: the timed
+    # kernel is tile-specific, so its measurements must be too
+    meta = parallel.fused_shard_meta(plan, n_shards, tk)
+    results = {}
+    ex = packed = None      # ONE executor serves both modes
+    for mode in parallel.OVERLAP_MODES:
+        key = _key(plan, "overlap", V, n_shards, overlap=mode) \
+            + f"/T{meta.tk}"
+        entry = parallel.broadcast_object(
+            None if refresh else store.get(key), group)
+        if entry is not None:
+            obs.inc("autotune.cache.hit")
+            results[mode] = entry
+            continue
+        obs.inc("autotune.cache.miss")
+        if ex is None:
+            ex = parallel.DistExecutor(
+                plan, mesh, axis, lane_width=V,
+                local_dwt=parallel.make_fused_local_dwt(plan, n_shards,
+                                                        meta=meta),
+                local_idwt=parallel.make_fused_local_idwt(plan, n_shards,
+                                                          meta=meta))
+            gen = torch.Generator(device=plan.device).manual_seed(0)
+            packed = torch.randn((n_chunks * V, K, L, C), generator=gen,
+                                 dtype=plan.cdtype, device=plan.device)
+        t = obs.time_fn(lambda x: ex.inverse_batch(x, overlap=mode), packed,
+                        reps=reps, name="autotune.overlap",
+                        device=plan.device, key=key,
+                        overlap=mode) / (n_chunks * V)
+        entry = parallel.broadcast_object(
+            {"overlap": mode, "per_transform_s": t}, group)
+        if first:
+            _store_cache(path, {key: entry})
+        results[mode] = entry
+    return min(results.values(), key=lambda r: r["per_transform_s"])
+
+
+def _tuned(maker, plan, impl, Vs, lchunk, precision, tune_kw):
+    from . import ops
+    cfg = autotune_dwt(plan, impl, Vs=Vs, lchunk=lchunk, precision=precision,
+                       **tune_kw)
+    V = cfg["V"]
+    return getattr(ops, maker)(plan, impl, tk=cfg["tk"], tl=cfg["tl"],
+                               batch=None if V == 1 else V, lchunk=lchunk,
+                               precision=precision)
+
+
+def tuned_dwt_fn(plan, impl: str = "fused", *, Vs=(1,),
+                 lchunk: int | None = None, precision: str = "fp32",
+                 **tune_kw):
+    """make_dwt_fn with autotuned tiles (sweeps and caches on first
+    call)."""
+    return _tuned("make_dwt_fn", plan, impl, Vs, lchunk, precision, tune_kw)
+
+
+def tuned_idwt_fn(plan, impl: str = "fused", *, Vs=(1,),
+                  lchunk: int | None = None, precision: str = "fp32",
+                  **tune_kw):
+    """make_idwt_fn sharing the forward sweep's tiling (the same data
+    layout)."""
+    return _tuned("make_idwt_fn", plan, impl, Vs, lchunk, precision,
+                  tune_kw)

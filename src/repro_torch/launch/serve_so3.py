@@ -11,17 +11,24 @@ throughput / occupancy stats -- and verifies every recovered rotation
 against its hidden truth.  ``--threaded`` exercises the background worker
 with jittered arrivals; the default drains synchronously (deterministic
 packing).
+
+``--mesh-shards N`` plans the engines on an N-rank DeviceMesh (axis
+"data"): the lane-packed sharded inverse.  It needs a process group of N
+ranks set up by the caller; a single process with N = 1 starts a
+one-rank group itself (NCCL on the card, gloo on the CPU) and ends it on
+exit, and any other N exits with the reason.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import soft
-from repro_torch.plan.transform import _not_ported
+from repro_torch.core import parallel, soft
+from repro_torch.core.batched import resolve_device
 from repro_torch.so3 import SO3Service, ServiceError, angle_error, s2
 from repro_torch.so3.correlate import random_rotation
 
@@ -51,18 +58,33 @@ def main(argv=None):
                          "queued past it resolve with a typed Expired "
                          "error (0 = no deadline)")
     ap.add_argument("--mesh-shards", type=int, default=0,
-                    help="shard the engines over N devices (not ported "
-                         "yet: any N > 0 exits with the reason)")
+                    help="shard the engines over an N-rank mesh "
+                         "(lane-packed sharded inverse; 0 = local plans); "
+                         "needs N ranks, or starts one rank for N = 1")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
     args = ap.parse_args(argv)
-    if args.mesh_shards > 0:
-        raise SystemExit(str(_not_ported("--mesh-shards", "mesh")))
+    device = resolve_device(args.device)
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if args.mesh_shards > 0:
+            try:
+                mesh = stack.enter_context(
+                    parallel.local_mesh(args.mesh_shards, device))
+            except RuntimeError as e:
+                raise SystemExit(f"--mesh-shards {args.mesh_shards}: {e}") \
+                    from e
+            print(f"mesh: {args.mesh_shards} shards over axis 'data' "
+                  f"(lane-packed sharded inverse)")
+        return _serve(args, device, mesh)
 
+
+def _serve(args, device, mesh):
     lane_width = args.lane_width if args.lane_width > 0 else None
     svc = SO3Service(bandwidths=args.bandwidth, dtype=torch.float64,
-                     lane_width=lane_width, device=args.device,
-                     max_wait_ms=args.max_wait_ms,
+                     lane_width=lane_width, device=device,
+                     max_wait_ms=args.max_wait_ms, mesh=mesh,
+                     axis=("data",),
                      max_queue=args.max_queue or None,
                      deadline_s=args.deadline_ms / 1e3 or None)
     svc.warmup()

@@ -28,7 +28,7 @@ import threading
 import time
 
 __all__ = ["Recorder", "span", "add_span", "inc", "observe", "counter",
-           "time_fn", "get_recorder", "set_recorder"]
+           "time_fn", "check_chrome_trace", "get_recorder", "set_recorder"]
 
 
 class Recorder:
@@ -216,31 +216,87 @@ def counter(name: str) -> int:
     return get_recorder().counter(name)
 
 
+def check_chrome_trace(doc: dict, required_names=()) -> list[str]:
+    """Minimal structural validation of a Chrome-trace document.  Returns
+    failure strings (empty = pass): the trace must be non-empty, every
+    event needs name/ph and non-negative ts/dur, begin timestamps must be
+    monotonic (the dump is ts-sorted), and every ``required_names`` span
+    must appear."""
+    failures = []
+    evs = doc.get("traceEvents")
+    if not evs:
+        return ["trace has no traceEvents"]
+    last_ts = float("-inf")
+    for i, ev in enumerate(evs):
+        if not ev.get("name") or ev.get("ph") not in ("X", "i", "C"):
+            failures.append(f"event {i} missing name/ph: {ev}")
+            continue
+        ts, dur = ev.get("ts", -1), ev.get("dur", 0)
+        if ts < 0 or dur < 0:
+            failures.append(f"event {i} ({ev['name']}) has negative "
+                            f"ts/dur: ts={ts} dur={dur}")
+        if ts < last_ts:
+            failures.append(f"event {i} ({ev['name']}) ts {ts} not "
+                            f"monotonic (prev {last_ts})")
+        last_ts = max(last_ts, ts)
+    seen = {ev.get("name") for ev in evs} - {None, ""}
+    for name in required_names:
+        if name not in seen:
+            failures.append(f"required span {name!r} missing from trace "
+                            f"(have {sorted(seen)})")
+    return failures
+
+
 def time_fn(fn, *args, reps: int = 3, name: str | None = None,
-            recorder: Recorder | None = None, sync=None, **attrs) -> float:
+            recorder: Recorder | None = None, sync=None, device=None,
+            **attrs) -> float:
     """Measure ``fn(*args)``: one untimed warmup call (kernel build +
-    cache fill), then ``reps`` timed calls synced once at the end;
-    returns mean seconds per call on the host clock.
+    cache fill), then ``reps`` timed calls; returns mean seconds per call.
+
+    ``device``: a CUDA device times the calls between two CUDA events on
+    its current stream (device time, synchronized once on the end
+    event); anything else times them on the host clock, synchronized
+    once at the end by ``sync`` (default ``torch.cuda.synchronize`` when
+    CUDA is initialized, else nothing: CPU torch ops are synchronous).
 
     Records the measurement into ``recorder`` (default: the process
     Recorder) as a span named ``name`` (default ``fn.__name__``) carrying
-    ``reps``/``per_call_s`` plus any extra ``attrs``.  ``sync`` is the
-    completion barrier (default ``torch.cuda.synchronize`` when CUDA is
-    initialized, else nothing: CPU torch ops are synchronous)."""
-    if sync is None:
-        sync = _torch_sync
+    ``reps`` / ``per_call_s`` / ``clock`` plus any extra ``attrs``."""
     rec = get_recorder() if recorder is None else recorder
-    fn(*args)                                 # build + warm
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn(*args)
-    sync()
-    t1 = time.perf_counter()
-    per_call = (t1 - t0) / reps
+    if device is not None and _is_cuda(device):
+        import torch
+        with torch.cuda.device(device):
+            fn(*args)                         # build + warm
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn(*args)
+            end.record()
+            end.synchronize()
+            t1 = time.perf_counter()
+            per_call = start.elapsed_time(end) / 1e3 / reps
+        clock = "cuda_events"
+    else:
+        if sync is None:
+            sync = _torch_sync
+        fn(*args)                             # build + warm
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        sync()
+        t1 = time.perf_counter()
+        per_call = (t1 - t0) / reps
+        clock = "host"
     rec.add_span(name or getattr(fn, "__name__", "time_fn"), t0, t1,
-                 reps=reps, per_call_s=per_call, **attrs)
+                 reps=reps, per_call_s=per_call, clock=clock, **attrs)
     return per_call
+
+
+def _is_cuda(device) -> bool:
+    return getattr(device, "type", str(device).split(":")[0]) == "cuda"
 
 
 def _torch_sync() -> None:

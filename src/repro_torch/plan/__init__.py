@@ -13,12 +13,15 @@ from __future__ import annotations
 import sys
 import types
 
-from .transform import (IMPLS, Schedule, Transform, cache_stats,  # noqa: F401
-                        clear_cache, dense_table_bytes_limit, plan,
+from .transform import (AUTO_IMPL_CANDIDATES,  # noqa: F401
+                        AUTO_V_CANDIDATES, IMPLS, Schedule, Transform,
+                        cache_stats, clear_cache, dense_table_bytes_limit,
+                        evict_mesh, plan, reset_host_peak_rss,
                         warm_bandwidths)
 
 __all__ = ["plan", "Transform", "Schedule", "clear_cache", "cache_stats",
-           "warm_bandwidths", "dense_table_bytes_limit", "IMPLS"]
+           "evict_mesh", "reset_host_peak_rss", "warm_bandwidths", "dense_table_bytes_limit", "IMPLS",
+           "AUTO_IMPL_CANDIDATES", "AUTO_V_CANDIDATES"]
 
 
 class _CallableModule(types.ModuleType):

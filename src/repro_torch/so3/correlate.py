@@ -40,7 +40,7 @@ import torch
 
 from repro_torch import plan as plan_mod
 from repro_torch.core import quadrature, soft
-from repro_torch.plan.transform import _DEF_TK, _not_ported
+from repro_torch.plan.transform import _DEF_TK
 
 from . import s2
 
@@ -178,16 +178,21 @@ class CorrelationEngine:
     ``CorrelationEngine(B, dtype=, lane_width=, impl=, device=)`` fetches
     the equivalent Transform from the plan cache (``lane_width=None``:
     V from the plan's rule; ``device=None``: the card).  The port's plans
-    fix the cluster tile at 8, so ``tk`` accepts only 8 (or None), and
-    ``mesh=`` raises until the distributed executor is ported.
+    fix the cluster tile at 8, so ``tk`` accepts only 8 (or None).
+
+    Distributed matching: hand the engine a mesh plan
+    (``repro_torch.plan(B, mesh=...).engine()``, or ``mesh=`` / ``axis=``
+    in the keyword form) and every correlation batch runs on the plan's
+    lane-packed sharded inverse: the pair coefficients are
+    cluster-sharded over the mesh, V pairs ride each sharded launch (one
+    all-to-all per chunk), and a multi-chunk batch inherits the plan's
+    ``overlap`` mode.  Every rank gets every result.
     """
 
     def __init__(self, B: int | None = None, *, transform=None,
                  dtype=torch.float64, lane_width: int | None = None,
                  impl: str = "fused", tk: int | None = None, device=None,
-                 mesh=None):
-        if mesh is not None:
-            raise _not_ported("CorrelationEngine(mesh=...)", "mesh")
+                 mesh=None, axis=("data", "model")):
         if tk is not None and tk != _DEF_TK:
             raise ValueError(f"tk={tk}: the port's plans fix the cluster "
                              f"tile at {_DEF_TK}")
@@ -200,7 +205,7 @@ class CorrelationEngine:
             transform = plan_mod.plan(
                 B, dtype, impl=impl,
                 V="auto" if lane_width is None else lane_width,
-                device=device)
+                device=device, mesh=mesh, axis=axis)
         elif B is not None and B != transform.B:
             raise ValueError(f"B={B} conflicts with transform.B="
                              f"{transform.B}")

@@ -85,7 +85,6 @@ from repro_torch import obs
 from repro_torch import plan as plan_mod
 from repro_torch.core import soft
 from repro_torch.core.batched import resolve_device
-from repro_torch.plan.transform import _not_ported
 
 from .correlate import CorrelationEngine, pair_norm, peak_euler
 
@@ -161,15 +160,20 @@ class SO3Service:
     def __init__(self, bandwidths=(8,), *, dtype=torch.float64,
                  lane_width: int | None = 4, impl: str = "fused",
                  tk: int | None = 8, device=None,
-                 max_wait_ms: float = 2.0, mesh=None, recorder=None,
+                 max_wait_ms: float = 2.0, mesh=None,
+                 axis=("data", "model"), recorder=None,
                  max_queue: int | None = None,
                  deadline_s: float | None = None,
                  max_retries: int = 1, retry_backoff_s: float = 0.05):
         """lane_width=None takes V per bandwidth from the plan's lane-width
         rule (repro_torch.plan) instead of a fixed width.  device=None
         serves on the card; pass "cpu" to run the kernels' plain versions
-        on the CPU.  mesh= raises until the distributed executor is
-        ported.
+        on the CPU.
+
+        mesh / axis plan the engines on a DeviceMesh (device's type):
+        every packed launch then runs the lane-packed sharded inverse (pair
+        stacks cluster-sharded, one all-to-all per launch group), and
+        multi-chunk drains inherit the plan's overlap mode.
 
         max_queue: admission bound on the TOTAL queued requests across
         all bandwidths (None = unbounded); arrivals over it resolve with
@@ -183,8 +187,6 @@ class SO3Service:
 
         recorder: the :class:`repro_torch.obs.Recorder` spans and latency
         histograms land in (default: the shared process recorder)."""
-        if mesh is not None:
-            raise _not_ported("SO3Service(mesh=...)", "mesh")
         self.bandwidths = tuple(bandwidths)
         self.lane_width = lane_width
         self.max_wait_ms = max_wait_ms
@@ -195,7 +197,8 @@ class SO3Service:
         self.obs = obs.get_recorder() if recorder is None else recorder
         self.device = resolve_device(device)
         self._engine_kw = dict(dtype=dtype, impl=impl, tk=tk,
-                               lane_width=lane_width, device=self.device)
+                               lane_width=lane_width, device=self.device,
+                               mesh=mesh, axis=axis)
         self._engines: dict[int, CorrelationEngine] = {}
         self._queues: dict[int, collections.deque] = {}
         self._lock = threading.Lock()

@@ -280,9 +280,32 @@ def test_engine_rejects_bad_config(kwargs, match):
         CorrelationEngine(B, device="cpu", **kwargs)
 
 
-def test_engine_mesh_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_engine_mesh_raises_not_ported(tmp_path):
+    """CorrelationEngine(mesh=): without a process group it raises (a
+    mesh plan never runs locally); on a one-rank gloo mesh it matches
+    planted pairs through the sharded inverse, every result_key equal to
+    the local V = 1 engine's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with pytest.raises(RuntimeError, match="process group"):
         CorrelationEngine(8, device="cpu", mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        eng = CorrelationEngine(8, lane_width=2, device="cpu", mesh=mesh,
+                                axis=("data",))
+        assert eng.transform.mesh is mesh and eng.transform.n_shards == 1
+        pairs = [planted_pair(8, seed=70 + n) for n in range(3)]
+        got = eng.match_batch([p[0] for p in pairs], [p[1] for p in pairs])
+        assert eng.stats["launches"] == 2
+        ref = engine(8, 1)
+        for res, (f, g, true) in zip(got, pairs):
+            assert recovered(res, true, 8)
+            assert result_key(res) == result_key(ref.match(f, g))
+    finally:
+        tplan.clear_cache()
+        dist.destroy_process_group()
 
 
 def test_correlation_runs_one_fused_launch_per_group(monkeypatch):

@@ -228,9 +228,33 @@ def test_warm_bandwidths_reports_plan_cache():
     assert svc._warm(4) and not svc._warm(16)
 
 
-def test_service_mesh_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SO3Service(bandwidths=(4,), device="cpu", mesh=object())
+def test_service_mesh_raises_not_ported(tmp_path):
+    """SO3Service(mesh=): without a process group the engine build raises
+    (no local fallback); on a one-rank gloo mesh every request resolves
+    exactly once, equal to direct unbatched execution."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        SO3Service(bandwidths=(4,), device="cpu", mesh=object()).engine(4)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        svc = service((8,), mesh=mesh, axis=("data",))
+        pairs = [planted_pair(8, seed=90 + n) for n in range(3)]
+        futs = [svc.submit(f, g) for f, g, _ in pairs]
+        assert svc.drain() == 3
+        assert svc.engine(8).transform.mesh is mesh
+        ref = CorrelationEngine(8, lane_width=1, device="cpu")
+        for fut, (f, g, true) in zip(futs, pairs):
+            res = fut.result(timeout=0)
+            assert recovered(res, true, 8)
+            assert result_key(res) == result_key(ref.match(f, g))
+        st = svc.stats()
+        assert st["completed"] == 3 and st["failed"] == st["retries"] == 0
+    finally:
+        tplan.clear_cache()
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -288,6 +312,19 @@ def test_serve_so3_cli(threaded, capsys):
     assert "OK: all rotations recovered" in capsys.readouterr().out
 
 
-def test_serve_so3_cli_mesh_exits_with_reason():
-    with pytest.raises(SystemExit, match="item 8"):
+def test_serve_so3_cli_mesh_exits_with_reason(capsys):
+    """--mesh-shards N needs N ranks: a single process exits with the
+    reason for N = 2, and serves on a one-rank gloo group it starts (and
+    ends) for N = 1."""
+    import torch.distributed as dist
+    with pytest.raises(SystemExit, match="needs a process group of 2"):
         serve_so3.main(["--mesh-shards", "2", "--device", "cpu"])
+    st = serve_so3.main(["--bandwidth", "8", "--requests", "4",
+                         "--mesh-shards", "1", "--device", "cpu"])
+    assert st["completed"] == st["submitted"] == 4 and st["failed"] == 0
+    out = capsys.readouterr().out
+    assert "mesh: 1 shards" in out and "OK: all rotations recovered" in out
+    assert not dist.is_initialized()
+    # the group's plans went with it: none holds the dead group
+    assert tplan.cache_stats()["mesh_size"] == 0
+    tplan.clear_cache()

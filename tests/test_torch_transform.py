@@ -173,9 +173,21 @@ def test_executor_spans_recorded():
 
 @pytest.mark.parametrize("kwargs", [dict(tune="measure"),
                                     dict(mesh=object())])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tplan(8, device="cpu", **kwargs)
+def test_unported_options_raise(kwargs, tmp_path):
+    """The two options that raised NotImplementedError before they were
+    ported: tune="measure" now resolves a measured schedule, and a mesh
+    plan without a torch.distributed process group raises instead of
+    running locally."""
+    if "mesh" in kwargs:
+        with pytest.raises(RuntimeError, match="process group"):
+            tplan(8, device="cpu", **kwargs)
+        return
+    t = tplan(8, device="cpu", tune_reps=1, tune_cache=tmp_path / "t.json",
+              **kwargs)
+    assert t.schedule.source == "measured" and t.schedule.per_transform_s > 0
+    fhat = tsoft.random_coeffs(8, 2)
+    np.testing.assert_allclose(t.forward(t.inverse(fhat)).numpy(), fhat,
+                               rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("impl", ["dense", "ragged", "onthefly"])
