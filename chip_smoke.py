@@ -15,8 +15,9 @@ Phases (any failure exits non-zero):
      checked against) without stack or spills;
      for the attention kernel, each
      instantiation's registers, local memory, shared memory per block
-     and blocks per SM (at most 232 448 bytes; the bf16 kernel at
-     bq = 128, D = 64 / 128 without local memory);
+     and blocks per SM (at most 232 448 bytes; the bf16 tensor-core
+     kernel at bq = 128, D = 64 / 128 and bq = 64, D = 192 / 256 without
+     local memory);
   3. each kernel against its plain torch version on the card: the fused
      DWT / iDWT at the main path's shapes (B = 128 f64 V = 8, B = 64 f32
      V = 8), the 1024-thread variant at J = 1024 (a subset of B = 512's
@@ -72,7 +73,10 @@ Phases (any failure exits non-zero):
      S = 2048, D = 64, bf16, bq = 128) timed beside its plain version,
      scaled_dot_product_attention and its bound, with TFLOP/s and the
      ratios to both; f32 at B = 2, S = 512; bf16 D = 128 at B = 4,
-     Hq = 16, Hkv = 4, S = 2048 (timed the same way); D = 36 and 128;
+     Hq = 16, Hkv = 4, S = 2048 (timed the same way); gemma-7b's
+     (Hq = Hkv = 16, D = 256) and nemotron-4-340b's (Hq 96, Hkv 8,
+     D = 192) heads at B = 1, S = 2048, bq 64, bf16 and f32 (timed);
+     D = 36, 128, 192 and 256;
      the reference's edge shapes (S 64 / 128, bq 16 / 32 / 64,
      Hq / Hkv 4/4, 4/2, 4/1); at every shape ATTN_TOL must
      reject faults planted in the plain version (p not rounded before
@@ -86,6 +90,20 @@ Phases (any failure exits non-zero):
      diagonal kv block dropped in every layer) outside it (also for a
      40-token, padded prompt), and a torch.profiler breakdown of one
      prefill and one decode step;
+  7c. the nine other architectures of repro_torch.configs at their
+     published width (bf16, random weights, torch.Generator seed 0, one
+     model at a time; nemotron-4-340b and llama4-maverick cut to 2
+     layers, the rest at full depth): generate, batch 2, prompt 2100, 16
+     greedy tokens (stub frontend embeddings for musicgen / qwen2-vl,
+     M-RoPE positions for qwen2-vl), the launch counts zeroed just before
+     and read just after (one attention launch per plain causal layer of
+     the prefill; none for recurrentgemma and rwkv6), a second generate
+     equal, finite logits, prefill and decode times, peak memory; decode
+     of token S after prefill(S) against prefill(S + 1) within
+     DECODE_TOL (MoE dropless), and planted faults outside it (a ring
+     slot off by one; RG-LRU / RWKV-6 states one position early); the
+     kernel-attention models' prefill logits against the plain-attention
+     model within LOGIT_TOL with equal greedy tokens;
   8. (every plan and the model freed first) rotational matching through
      repro_torch.so3 at B = 128 f64, plan(128) at its defaults (V = 8):
      8a. s2_analysis(s2_synthesis(flm)) on the card within S2_RTOL /
@@ -116,8 +134,10 @@ Phases (any failure exits non-zero):
      just after (exactly one local kernel launch and one all-to-all per
      chunk and direction), the roundtrip within RT_GATES, within
      MESH_RTOL / MESH_ATOL of plan(128)'s local transform, pipelined
-     torch.equal to off, ms per batch beside the local plan's, peak
-     memory against estimate_batch_bytes; 9c. 16 planted pairs through
+     torch.equal to off, ms per batch beside the local plan's, each
+     mode's peak above the live memory under estimate_batch_bytes in that
+     mode (overlap="pipelined" counts its second receive slot and the
+     next chunk's stage 1); 9c. 16 planted pairs through
      the mesh plan's engine: one idwt_fused launch and one all-to-all a
      group, every rotation within 1.5 pi / B, every result_key equal to
      the mesh plan's V = 1 engine;
@@ -131,7 +151,10 @@ Phases (any failure exits non-zero):
      (each (impl, V, tk)) against its plain version at TOL, a second
      build that reads the cache
      (autotune.cache.hit rises, no candidate span), keys naming cuda and
-     sm_90, and profile_so3 --bandwidth 16 --check.
+     sm_90, and profile_so3 --bandwidth 16 --check;
+ 11. examples/torch_quickstart.py and examples/torch_rotational_matching.py
+     --bandwidth 16 as subprocesses on the card: exit 0 with their "OK" /
+     "rotation recovered" lines.
 The line before the last is one JSON object {"kernels": [...]} (eleven
 kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
 the output directory OUT.
@@ -140,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import pathlib
 import re
@@ -1537,13 +1561,19 @@ LOGIT_TOL = 5e-2
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "smollm-135m", 8, 2048, 32
 
 
+# head widths whose tensor-core (bf16) instantiation phase 2 holds to no
+# local memory (stack or spills)
+ATTN_NO_LOCAL_D = (64, 128, 192, 256)
+
+
 def attention_kernel_info(ptxas_text: str) -> dict:
     """Phase 2 for the attention kernel: every instantiation's registers,
     stack frame and spills (from its ptxas log), dynamic shared memory
     (folded_attention_smem_bytes) and resident blocks per SM (the card's
     occupancy query), held to the 232 448 bytes a block can have and to
-    one block per SM at least; the bf16 instantiations at bq = 128,
-    D = 64 / 128 held to no local memory."""
+    one block per SM at least; the tensor-core instantiations (bf16 at
+    bq = max_bq(D)) at the widths ATTN_NO_LOCAL_D held to no local
+    memory."""
     import ctypes
     from repro_torch.kernels import folded_attention as fa
     from repro_torch.kernels import runtime
@@ -1565,6 +1595,8 @@ def attention_kernel_info(ptxas_text: str) -> dict:
     for dname, is_bf16 in (("bfloat16", 1), ("float32", 0)):
         for bq in fa.KERNEL_BQ:
             for D in fa.KERNEL_D:
+                if bq > fa.max_bq(D):
+                    continue
                 k = compiled.get((dname, bq, D))
                 if k is None or "stack" not in k:
                     fail(f"folded_attention {dname} bq={bq} D={D}: no ptxas "
@@ -1580,7 +1612,7 @@ def attention_kernel_info(ptxas_text: str) -> dict:
                        "smem_bytes": smem_fn(bq, D, is_bf16),
                        "blocks_per_sm": blocks.value}
                 out[f"{dname}_bq{bq}_D{D}"] = rec
-                if is_bf16 or (bq, D) == (128, 128):
+                if is_bf16 or bq == fa.max_bq(D):
                     log(f"  folded_attention {dname} bq={bq:3d} D={D:3d}: "
                         f"{rec['registers']} registers, stack "
                         f"{rec['stack_bytes']} B, spills {rec['spill_bytes']}"
@@ -1590,9 +1622,10 @@ def attention_kernel_info(ptxas_text: str) -> dict:
                     fail(f"folded_attention {dname} bq={bq} D={D}: "
                          f"{rec['smem_bytes']} bytes of shared memory, "
                          f"{rec['blocks_per_sm']} blocks per SM")
-                if is_bf16 and bq == 128 and D in (64, 128) \
+                if is_bf16 and bq == fa.max_bq(D) \
+                        and D in ATTN_NO_LOCAL_D \
                         and (rec["stack_bytes"] or rec["spill_bytes"]):
-                    fail(f"folded_attention bf16 bq=128 D={D} uses local "
+                    fail(f"folded_attention bf16 bq={bq} D={D} uses local "
                          f"memory (stack {rec['stack_bytes']} B, spills "
                          f"{rec['spill_bytes']} B)")
     return out
@@ -1749,8 +1782,10 @@ def attention_case(B, Hq, Hkv, S, D, dtype, bq, *, seed, time_it=False):
 
 def attention_cases() -> dict:
     """Phase 7a: the serving shape (timed), f32, a bf16 D = 128 shape at
-    S = 2048 (timed), D = 36 / 128, and the edge shapes of
-    tests/test_kernels.py:159-200."""
+    S = 2048 (timed), gemma-7b's and nemotron-4-340b's head layouts at
+    D = 256 / 192, B = 1, S = 2048, bq 64, bf16 and f32 (timed), D = 36 /
+    128 / 192 / 256 at small S (bf16 below bq 64 takes the scalar kernel),
+    and the edge shapes of tests/test_kernels.py:159-200."""
     import torch
     if torch.backends.cuda.matmul.allow_tf32:
         fail("allow_tf32 is on: the plain version's f32 products would "
@@ -1762,10 +1797,21 @@ def attention_cases() -> dict:
                                   time_it=True),
             "d128": attention_case(4, 16, 4, 2048, 128, bf16, 128, seed=79,
                                    time_it=True)}
+    # the head widths of gemma-7b (Hq = Hkv = 16, D = 256) and
+    # nemotron-4-340b (Hq 96, Hkv 8, D = 192) at their largest block
+    # (max_bq = 64), bf16 and f32, timed
+    for key, (Hq, Hkv, D) in (("gemma_d256", (16, 16, 256)),
+                              ("nemotron_d192", (96, 8, 192))):
+        for dt in (bf16, f32):
+            recs[f"{key}_{str(dt)[6:]}"] = attention_case(
+                1, Hq, Hkv, 2048, D, dt, 64, seed=D + len(str(dt)),
+                time_it=True)
     for i, (B, Hq, Hkv, S, D, dt, bq) in enumerate((
             (2, 4, 2, 256, 36, bf16, 32), (2, 4, 2, 256, 36, f32, 32),
             (2, 4, 1, 512, 128, bf16, 128), (2, 4, 1, 512, 128, f32, 64),
-            (1, 2, 2, 64, 64, bf16, 16), (1, 2, 2, 64, 64, f32, 16))):
+            (1, 2, 2, 64, 64, bf16, 16), (1, 2, 2, 64, 64, f32, 16),
+            (2, 4, 1, 256, 256, bf16, 32), (2, 4, 2, 256, 192, f32, 16),
+            (2, 6, 2, 128, 192, bf16, 64))):
         recs[f"shape{i}"] = attention_case(B, Hq, Hkv, S, D, dt, bq,
                                            seed=72 + i)
     for S, bq in ((64, 16), (128, 32), (128, 64)):
@@ -1807,9 +1853,10 @@ def serve_profile(model, prompts, max_len, path) -> dict:
     return out
 
 
-def attention_record(name, meta, attn, serve) -> dict:
+def attention_record(name, meta, attn, serve, archs) -> dict:
     """The {"kernels": ...} entry of the attention kernel: times and
-    error at the serving shape, launches from phase 7b's generate."""
+    error at the serving shape, launches from phase 7b's generate, and
+    each architecture's launches per prefill of phase 7c."""
     rec = attn["serve"]
     return {
         "name": name, "route": "cuda", "source": meta["source"],
@@ -1831,7 +1878,17 @@ def attention_record(name, meta, attn, serve) -> dict:
             "library_ms", "bound_ms", "bound_by", "tflops", "dtype", "B",
             "Hq", "Hkv", "S", "D")}
             for key, case in (("f32_B2_S512", "f32"),
-                              ("bf16_D128_B4_S2048", "d128"))},
+                              ("bf16_D128_B4_S2048", "d128"),
+                              ("bf16_D256_gemma_B1_S2048",
+                               "gemma_d256_bfloat16"),
+                              ("f32_D256_gemma_B1_S2048",
+                               "gemma_d256_float32"),
+                              ("bf16_D192_nemotron_B1_S2048",
+                               "nemotron_d192_bfloat16"),
+                              ("f32_D192_nemotron_B1_S2048",
+                               "nemotron_d192_float32"))},
+        "launches_arch_path": {a: r["launches_per_prefill"]
+                               for a, r in archs.items()},
     }
 
 
@@ -1960,6 +2017,317 @@ def serve_path() -> dict:
     del model, prompts
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the nine other architectures at full width
+# ---------------------------------------------------------------------------
+
+# the reference's architectures after smollm-135m (phase 7b), in its order
+ARCH_PATH = ("recurrentgemma-9b", "musicgen-medium", "glm4-9b", "gemma-7b",
+             "nemotron-4-340b", "rwkv6-3b", "qwen2-vl-7b", "olmoe-1b-7b",
+             "llama4-maverick-400b-a17b")
+# depth cuts: the published depth wherever the bf16 weights fit 24 GB;
+# nemotron keeps 2 of its 96 layers, llama4 2 of its 48 (one dense, one
+# routed: the 128 experts of one routed layer, ~32 GB, are real)
+ARCH_DEPTH = {"nemotron-4-340b": 2, "llama4-maverick-400b-a17b": 2}
+ARCH_BATCH, ARCH_PROMPT, ARCH_TOKENS = 2, 2100, 16
+# Decode of token S after prefill(S) against prefill(S + 1) (the
+# reference's tests/test_arch_smoke.py check, in bf16 at full width):
+# "logits", max|decode - prefill| / max|prefill| of the last logits, and
+# "state", the largest over layers and keys of max|state - state'| /
+# max|state'| of the decode states (KV caches and rings, RG-LRU (h,
+# conv), RWKV-6 (S, x_prev)).  A planted fault must break one of them:
+# recurrentgemma's rings one slot off (rolled by one after the prefill),
+# and the RG-LRU / RWKV-6 states taken one position early (from
+# prefill(S - 1)).  Fixed between the card's sound readings and those
+# faults (H100 80GB HBM3, 700 W; PERF.md section 6, PR 21): sound logits
+# 7.3e-3 to 3.4e-2 and states 6.0e-3 to 5.1e-2 (rwkv6-3b the largest of
+# both: its f32 state sums 2 100 steps of bf16-rounded k v^T); planted
+# states 1.41 to 1.79.  The logits alone cannot see a ring slot off by one
+# (8.8e-3: one key of 2 048 moves); the states do.
+DECODE_TOL = {"logits": 0.2, "state": 0.25}
+
+
+def _arch_inputs(cfg, gen, B, S):
+    """Seeded prompt inputs: (tokens, embeds, positions); stub frontend
+    embeddings of 0.02 N(0, 1) for embed_inputs configs, (3, B, S)
+    positions for M-RoPE."""
+    import torch
+    tokens = embeds = positions = None
+    if cfg.embed_inputs:
+        embeds = torch.randn((B, S, cfg.d_model), generator=gen,
+                             device=DEV) * 0.02
+    else:
+        tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                               device=DEV)
+    if cfg.pos_type == "mrope":
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=DEV).expand(3, B, S)
+    return tokens, embeds, positions
+
+
+def _cut(x, n, dim):
+    return None if x is None else x.narrow(dim, 0, n)
+
+
+def _state_rel(got, want) -> float:
+    """Largest max|g - w| / max|w| over the layers' state tensors."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        for key in w:
+            den = float(w[key].float().abs().max())
+            num = float((g[key].float() - w[key].float()).abs().max())
+            worst = max(worst, num / den if den else num)
+    return worst
+
+
+def _set_capacity(model, capacity_factor):
+    """Every MoE layer of ``model`` at ``capacity_factor`` (dropless at
+    16, as the reference's decode-against-prefill check)."""
+    import dataclasses
+    from repro_torch.models import moe
+    for mod in model.modules():
+        if isinstance(mod, moe.MoE):
+            mod.cfg = dataclasses.replace(mod.cfg, moe=dataclasses.replace(
+                mod.cfg.moe, capacity_factor=capacity_factor))
+
+
+def decode_against_prefill(model, tokens, embeds, positions, S, plant=None):
+    """(logits rel, state rel) of decoding token S after prefill(S)
+    against prefill(S + 1).  ``plant``: None, "ring_slot" (every
+    local_attn ring rolled by one slot after the prefill) or
+    "state_early" (every RG-LRU / RWKV-6 state taken from prefill(S - 1))."""
+    import torch
+    max_len = S + 1
+    kw = dict(embeds=_cut(embeds, S, 1), positions=_cut(positions, S, -1))
+    _, st = model.prefill(_cut(tokens, S, 1), max_len, **kw)
+    kinds = [b.kind for b in model.blocks]
+    if plant == "ring_slot":
+        for i, kind in enumerate(kinds):
+            if kind == "local_attn":
+                st[i] = {k: torch.roll(v, 1, dims=1) for k, v in st[i].items()}
+    elif plant == "state_early":
+        kw1 = dict(embeds=_cut(embeds, S - 1, 1),
+                   positions=_cut(positions, S - 1, -1))
+        _, early = model.prefill(_cut(tokens, S - 1, 1), max_len, **kw1)
+        for i, kind in enumerate(kinds):
+            if kind in ("rglru", "rwkv6"):
+                st[i] = early[i]
+        del early
+    elif plant is not None:
+        raise ValueError(plant)
+    if tokens is None:
+        step = dict(embeds=embeds[:, S:S + 1])
+        lb, st = model.decode_step(None, st, S, **step)
+    else:
+        lb, st = model.decode_step(tokens[:, S:S + 1], st, S)
+    lf, stf = model.prefill(_cut(tokens, S + 1, 1), max_len,
+                            embeds=_cut(embeds, S + 1, 1),
+                            positions=_cut(positions, S + 1, -1))
+    rel = float((lb - lf).abs().max() / lf.abs().max())
+    return rel, _state_rel(st, stf)
+
+
+def arch_case(arch: str) -> dict:
+    """One architecture of phase 7c at its published width: bf16 random
+    weights from torch.Generator seed 0, the depth of ARCH_DEPTH; generate
+    (ARCH_BATCH x ARCH_PROMPT prompt, ARCH_TOKENS greedy tokens) with the
+    launch counts zeroed just before and read just after (one attention
+    launch per plain causal layer); a second generate equal; prefill and
+    decode times, peak memory; decode against prefill within DECODE_TOL
+    and the planted faults outside it; the kernel-attention models'
+    prefill logits against the plain-attention model within LOGIT_TOL
+    with equal greedy tokens (where the plain model's bf16 logits tie
+    exactly at their maximum, the kernel's token must be one of the tied
+    ones)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, lm
+
+    cfg = configs.get(arch)
+    if arch in ARCH_DEPTH:
+        log(f"  {arch}: depth cut from {cfg.num_layers} to "
+            f"{ARCH_DEPTH[arch]} layers (full width)")
+        cfg = dataclasses.replace(cfg, num_layers=ARCH_DEPTH[arch])
+    B, S, n = ARCH_BATCH, ARCH_PROMPT, ARCH_TOKENS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = lm.init(cfg, gen)
+    tokens, embeds, positions = _arch_inputs(cfg, gen, B, S + 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_kernel = sum(isinstance(b.mixer, attention.Attention)
+                   and b.mixer.uses_kernel for b in model.blocks)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {arch}: {cfg.num_layers} layers {cfg.block_pattern}, "
+        f"{lm.count_params(cfg)} parameters ({weights} bytes of "
+        f"{cfg.param_dtype}), built in {build_s:.2f} s; plain causal "
+        f"attention layers (kernel): {n_kernel}")
+    prompt = dict(embeds=_cut(embeds, S, 1),
+                  positions=_cut(positions, S, -1))
+    toks = _cut(tokens, S, 1)
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = serve.generate(model, toks, n, **prompt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    attn_launches = launches["folded_causal_attention"]
+    others = {k: v for k, v in launches.items()
+              if v and k != "folded_causal_attention"}
+    log(f"    generate({B}x{S}, {n} tokens): first call {first_s:.2f} s, "
+        f"attention-kernel launches {attn_launches} (want {n_kernel})")
+    if attn_launches != n_kernel or others:
+        fail(f"7c {arch}: {attn_launches} attention launches (and {others})"
+             f" for one prefill of {n_kernel} plain causal layers")
+    if out.shape != (B, n) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        fail(f"7c {arch}: tokens {tuple(out.shape)} out of range")
+    t0 = time.perf_counter()
+    out2 = serve.generate(model, toks, n, **prompt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(out, out2):
+        fail(f"7c {arch}: a second generate gave other tokens")
+
+    max_len = S + n
+    prefill_ms = host_ms(lambda: model.prefill(toks, max_len, **prompt), 1)
+    logits, states = model.prefill(toks, max_len, **prompt)
+    if not torch.isfinite(logits).all():
+        fail(f"7c {arch}: non-finite prefill logits")
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        if embeds is None:
+            logits, states = model.decode_step(tok, states, S + i)
+        else:
+            logits, states = model.decode_step(
+                None, states, S + i, embeds=model.embed[tok[:, 0]][:, None])
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    if not torch.isfinite(logits).all():
+        fail(f"7c {arch}: non-finite decode logits")
+    del states, logits
+    peak = torch.cuda.max_memory_allocated()
+    res = {"layers": cfg.num_layers, "published_layers":
+           configs.get(arch).num_layers, "batch": B, "prompt": S,
+           "tokens": n, "build_s": build_s, "weight_bytes": weights,
+           "launches_per_prefill": attn_launches,
+           "kernel_layers": n_kernel, "generate_first_s": first_s,
+           "generate_s": gen_s, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms, "peak_bytes": peak}
+    log(f"    prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms/step, "
+        f"generate {gen_s:.2f} s, peak device memory {peak} bytes (host "
+        f"clock, synchronized)")
+
+    if cfg.moe is not None:
+        _set_capacity(model, 16.0)
+    rel, srel = decode_against_prefill(model, tokens, embeds, positions, S)
+    res.update(decode_logits_rel=rel, decode_state_rel=srel, planted={})
+    log(f"    decode vs prefill({S + 1}): logits {rel:.3e} (tol "
+        f"{DECODE_TOL['logits']:g}), states {srel:.3e} (tol "
+        f"{DECODE_TOL['state']:g})")
+    if not (rel <= DECODE_TOL["logits"] and srel <= DECODE_TOL["state"]):
+        fail(f"7c {arch}: decode disagrees with prefill (logits {rel:.3e}, "
+             f"states {srel:.3e})")
+    kinds = {b.kind for b in model.blocks}
+    for plant, where in (("ring_slot", "local_attn"),
+                         ("state_early", "rglru"), ("state_early", "rwkv6")):
+        if where not in kinds or plant in res["planted"]:
+            continue
+        prel, psrel = decode_against_prefill(model, tokens, embeds,
+                                             positions, S, plant)
+        res["planted"][plant] = {"logits_rel": prel, "state_rel": psrel}
+        log(f"    planted {plant}: logits {prel:.3e}, states {psrel:.3e} "
+            f"(must break a limit)")
+        if prel <= DECODE_TOL["logits"] and psrel <= DECODE_TOL["state"]:
+            fail(f"7c {arch}: DECODE_TOL {DECODE_TOL} does not reject the "
+                 f"planted {plant}")
+    if cfg.moe is not None:
+        _set_capacity(model, cfg.moe.capacity_factor)
+
+    if n_kernel:
+        reset_all_launches()
+        lk, _ = model.prefill(toks, S, **prompt)
+        lp, _ = model.prefill(toks, S, attn_fn=plain_attention, **prompt)
+        prel = float((lk - lp).abs().max() / lp.abs().max())
+        # the kernel's greedy token is a greedy token of the plain model:
+        # its argmax, or a token whose logit ties the plain maximum exactly
+        # (the head's bf16 logits can tie: then argmax picks the lower id)
+        tok_k = lk.argmax(-1)
+        same = tok_k == lp.argmax(-1)
+        tied = lp.gather(-1, tok_k[:, None])[:, 0] == lp.max(-1).values
+        agree = float((same | tied).float().mean())
+        res.update(logits_rel_err_vs_plain=prel, greedy_agree=agree,
+                   greedy_exact_ties=int((tied & ~same).sum()))
+        log(f"    prefill logits, kernel vs plain attention: max|k-p|/max|p|"
+            f" = {prel:.3e} (tol {LOGIT_TOL:g}), greedy tokens agree "
+            f"{agree:.3f}")
+        top2 = lp.topk(2, -1).values
+        for b in torch.nonzero(~same).flatten().tolist():
+            log(f"    sequence {b}: the plain model's top-2 logit gap "
+                f"{float(top2[b, 0] - top2[b, 1]):.5f} (max|p| "
+                f"{float(lp.abs().max()):.3f}); its logit of the kernel's "
+                f"token {float(lp[b, tok_k[b]]):.5f}, of its own "
+                f"{float(top2[b, 0]):.5f}"
+                f"{' (an exact tie)' if bool(tied[b]) else ''}")
+        if not prel <= LOGIT_TOL or agree != 1.0:
+            fail(f"7c {arch}: the kernel's prefill logits differ from the "
+                 f"plain-attention model's ({prel:.3e}, agree {agree})")
+    del model, tokens, embeds, positions, out, out2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def arch_path() -> dict:
+    """Phase 7c: every architecture of ARCH_PATH, one model at a time."""
+    t0 = time.perf_counter()
+    out = {arch: arch_case(arch) for arch in ARCH_PATH}
+    log(f"  phase 7c: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the SO(3) examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = (("torch_quickstart.py", ("--bandwidth", "16"), "OK"),
+            ("torch_rotational_matching.py", ("--bandwidth", "16"),
+             "rotation recovered"))
+
+
+def examples_on_card() -> dict:
+    """Each example of EXAMPLES as a subprocess on the card (its default
+    device): exit 0, its line, and "on cuda" in its report."""
+    out = {}
+    for script, args, want in EXAMPLES:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / script), *args],
+                cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"11: examples/{script} ran over 300 s")
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines()[-4:]:
+            log(f"    [{script}] {line}")
+        if proc.returncode != 0 or want not in proc.stdout \
+                or "on cuda" not in proc.stdout:
+            log(proc.stderr[-2000:])
+            fail(f"11: examples/{script} {' '.join(args)} exited "
+                 f"{proc.returncode} without {want!r} on the card")
+        out[script] = {"args": list(args), "s": secs}
+        log(f"  examples/{script} {' '.join(args)}: OK in {secs:.1f} s")
+    return out
 
 
 _BUCKETS = (("DWT kernels", ("dwt_fused", "dwt_stream", "dense_kernel",
@@ -2562,15 +2930,19 @@ def mesh_path(mesh, counts: dict) -> dict:
     each mode and read just after (one local kernel launch and one
     all-to-all per chunk and direction); roundtrip within RT_GATES; within
     MESH_RTOL / MESH_ATOL of plan(128)'s local transform; pipelined
-    torch.equal to off; ms per batch beside the local plan's; peak memory
-    against estimate_batch_bytes."""
+    torch.equal to off; ms per batch beside the local plan's; each mode's
+    peak above the live memory under estimate_batch_bytes in that mode
+    (the pipelined batch holds a second receive slot and the next chunk's
+    stage 1)."""
     import torch
     import repro_torch
     from repro_torch.core import parallel
+    from repro_torch.kernels import autotune
 
     B, n = MESH_B, MESH_BATCH
     t0 = time.perf_counter()
     t = repro_torch.plan(B, mesh=mesh, axis=("data",))
+    itemsize = torch.empty((), dtype=t.dtype).element_size()
     build_s = time.perf_counter() - t0
     d = t.describe()
     log(f"  plan({B}, mesh): built in {build_s:.1f} s, impl={d['impl']} "
@@ -2597,9 +2969,16 @@ def mesh_path(mesh, counts: dict) -> dict:
         counts[mode] = {"launches": launches, "all_to_alls": a2a}
         others = {k: v for k, v in launches.items()
                   if v and k not in ("dwt_fused", "idwt_fused")}
+        estimate = autotune.estimate_batch_bytes(
+            B, t.soft_plan.n_padded, d["V"], itemsize, whole_grids=True,
+            overlap=mode)
         log(f"  overlap={mode}: launches {launches}, all-to-alls {a2a}, "
-            f"stats {t.stats}; peak {peak} bytes (before {before}) vs "
-            f"estimate_batch_bytes {d['batch_bytes']}")
+            f"stats {t.stats}; peak {peak - before} bytes above the "
+            f"{before} live before, estimate_batch_bytes(overlap={mode!r}) "
+            f"{estimate}")
+        if peak - before > estimate:
+            fail(f"9b {mode}: the batch peaked {peak - before} bytes above "
+                 f"the live memory, over its estimate {estimate}")
         if launches["dwt_fused"] != chunks or \
                 launches["idwt_fused"] != chunks or others or \
                 a2a != {"forward": chunks, "inverse": chunks}:
@@ -2612,7 +2991,8 @@ def mesh_path(mesh, counts: dict) -> dict:
         check_roundtrip(B, abs_err, rel_err)
         res["modes"][mode] = {"roundtrip_abs": abs_err,
                               "roundtrip_rel": rel_err, "peak_bytes": peak,
-                              "before_bytes": before}
+                              "before_bytes": before,
+                              "estimate_bytes": estimate}
         outs[mode] = (fs, backs)
         del fs, backs
     same = [bool(torch.equal(outs["off"][i], outs["pipelined"][i]))
@@ -3085,6 +3465,9 @@ def main() -> int:
     log(f"== 7b. serve path: {SERVE_ARCH} generate, batch {SERVE_BATCH}, "
         f"prompt {SERVE_PROMPT}, {SERVE_TOKENS} greedy tokens")
     serve = serve_path()
+    log(f"== 7c. the other architectures at full width: generate, batch "
+        f"{ARCH_BATCH}, prompt {ARCH_PROMPT}, {ARCH_TOKENS} greedy tokens")
+    archs = arch_path()
     free_plans()       # phase 8 measures its own peaks
 
     log(f"== 8. rotational matching: repro_torch.so3 at B = {SO3_B}")
@@ -3127,6 +3510,10 @@ def main() -> int:
     log("== 10. measured tuning: plan(tune='measure')")
     tune_counts = {}
     tuned = measured_tuning(tune_counts)
+    free_plans()
+
+    log("== 11. the SO(3) examples on the card")
+    examples = examples_on_card()
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
@@ -3143,7 +3530,8 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         if name == "folded_causal_attention":
-            kernels.append(attention_record(name, meta, attn, serve))
+            kernels.append(attention_record(name, meta, attn, serve,
+                                            archs))
             continue
         main_rec = {**recs, **srecs, **trecs, **orecs}[name]
         extra = {"f32_B64": {**recs32, **srecs32, **trecs32, **orecs32}[name]}
@@ -3218,6 +3606,8 @@ def main() -> int:
                "attention": attn, "attention_kernels": attn_kernels,
                "attn_tol": ATTN_TOL,
                "serve_path": serve, "logit_tol": LOGIT_TOL,
+               "arch_path": archs, "decode_tol": DECODE_TOL,
+               "examples": examples,
                "so3_b128": {"s2": s2_res, "engine": engine_res,
                             "service": service_res,
                             "s2_tol": [S2_RTOL, S2_ATOL]},

@@ -1,9 +1,8 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution.
-
-Only the ported architectures resolve; the reference's other ids raise
-``NotImplementedError`` naming their ROADMAP.md item.
-"""
-from . import smollm_135m, soft
+"""Architecture registry of the port: ``--arch <id>`` resolution, the
+reference's ten architectures in its order."""
+from . import (glm4_9b, gemma_7b, llama4_maverick_400b_a17b, musicgen_medium,
+               nemotron_4_340b, olmoe_1b_7b, qwen2_vl_7b,
+               recurrentgemma_9b, rwkv6_3b, smollm_135m, soft)
 from .base import (ArchConfig, MoEConfig, ShapeConfig, LM_SHAPES,  # noqa: F401
                    shapes_for, sub_quadratic)
 
@@ -11,13 +10,17 @@ __all__ = ["ARCH_NAMES", "SOFT_CONFIGS", "get", "reduced", "ArchConfig", "MoECon
            "ShapeConfig", "LM_SHAPES", "shapes_for", "sub_quadratic"]
 
 _MODULES = {
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "musicgen-medium": musicgen_medium,
     "smollm-135m": smollm_135m,
+    "glm4-9b": glm4_9b,
+    "gemma-7b": gemma_7b,
+    "nemotron-4-340b": nemotron_4_340b,
+    "rwkv6-3b": rwkv6_3b,
+    "qwen2-vl-7b": qwen2_vl_7b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
 }
-
-# the reference's architectures that the port does not run yet
-NOT_PORTED = ("recurrentgemma-9b", "musicgen-medium", "glm4-9b", "gemma-7b",
-              "nemotron-4-340b", "rwkv6-3b", "qwen2-vl-7b", "olmoe-1b-7b",
-              "llama4-maverick-400b-a17b")
 
 ARCH_NAMES = tuple(_MODULES)
 
@@ -28,11 +31,7 @@ SOFT_CONFIGS = soft.CONFIGS
 def _module(name: str):
     if name in _MODULES:
         return _MODULES[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: not ported to repro_torch yet (ROADMAP.md queue 1 "
-            f"item 11)")
-    raise KeyError(f"unknown architecture {name!r}; ported: {ARCH_NAMES}")
+    raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
 
 
 def get(name: str) -> ArchConfig:

@@ -610,10 +610,13 @@ class DistExecutor:
             outs = []
             for n0 in range(0, local.shape[0], V):
                 chunk, n = kops.pad_lanes(local[n0: n0 + V], V)
-                # host-side dispatch span (launches stay asynchronous)
+                # host-side dispatch span (launches stay asynchronous);
+                # obs.device_annotation lines it up with a torch.profiler
+                # capture's device timeline when $REPRO_OBS_TORCH_TRACE is on
                 with obs.span("executor.chunk", mode="off",
                               direction=direction, chunk=n0 // V, lanes=n,
-                              n_shards=self.n_shards):
+                              n_shards=self.n_shards), \
+                        obs.device_annotation(f"executor.chunk.{direction}"):
                     o = lanes_fn(chunk)
                 if stats is not None:
                     stats["launches"] += 1
@@ -638,7 +641,8 @@ class DistExecutor:
         with obs.span("executor.pipeline", direction=direction,
                       n_chunks=n_chunks, lanes=n, padded=pad,
                       n_shards=self.n_shards,
-                      slots=[list(s) for s in pipeline_slots(n_chunks)]):
+                      slots=[list(s) for s in pipeline_slots(n_chunks)]), \
+                obs.device_annotation(f"executor.pipeline.{direction}"):
             outs = (self._forward_pipe(chunks) if fwd
                     else self._inverse_pipe(chunks))
         if stats is not None:

@@ -52,7 +52,7 @@ __all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
            "SMEM_LIMIT_BYTES", "V_CANDIDATES", "V_RULE",
            "lane_slice", "block_threads", "estimate_smem_bytes",
            "dense_smem_bytes", "table_bytes", "window_bytes",
-           "estimate_batch_bytes",
+           "estimate_batch_bytes", "pipeline_extra_bytes",
            "dense_table_host_bytes", "device_memory_bytes",
            "static_lane_width", "static_precision", "static_lchunk",
            "schedule_smem_bytes", "memory_budget_bytes", "backend_name",
@@ -204,10 +204,32 @@ def window_bytes(B: int, K: int, lchunk: int | None, precision: str,
                                             else itemsize)
 
 
+def pipeline_extra_bytes(B: int, K: int, V: int, itemsize: int) -> int:
+    """Device bytes that a mesh plan's ``overlap="pipelined"`` batch holds
+    beyond one chunk's buffers (core.parallel's ``_forward_pipe`` /
+    ``_inverse_pipe``): per lane,
+
+      * the second receive slot (K x J rows of 16 lanes: the chunk's
+        all-to-all buffer);
+      * the next chunk's stage 1, issued before this chunk's slot is
+        waited on: its send buffer (K x J x 16) and its working set, the
+        larger of the forward's (the FFT output grid and the member
+        gather, K x J x 16) and the inverse's (the lane-packed operand,
+        K x L x 16, the kernel result and its flipped copy, 2 x K x J x
+        16)."""
+    c = 2 * itemsize
+    grid = (2 * B) ** 3 * c
+    wide = K * 2 * B * 16 * itemsize
+    narrow = K * B * 16 * itemsize
+    stage1 = max(grid + wide, narrow + 2 * wide)
+    return V * (wide + wide + stage1)
+
+
 def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
                          lchunk: int | None = None,
                          precision: str = "fp32", table: bool = False,
-                         whole_grids: bool | None = None) -> int:
+                         whole_grids: bool | None = None,
+                         overlap: str = "off") -> int:
     """Device bytes live at the peak of one V-lane batch call, counted
     from core.batched's buffers (the forward and the inverse hold the
     same set):
@@ -227,7 +249,9 @@ def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
         grids (the FFT output and its stacked copy) and two member
         stacks (the reflected gather and its weighted copy).
         ``whole_grids`` overrides the table's choice: a mesh plan's
-        executor runs whole grids with or without the table."""
+        executor runs whole grids with or without the table;
+      * ``overlap="pipelined"`` (a mesh plan's two-slot batch) adds
+        :func:`pipeline_extra_bytes`."""
     c = 2 * itemsize                             # one complex value
     J = 2 * B
     grid = (2 * B) ** 3 * c
@@ -238,9 +262,11 @@ def estimate_batch_bytes(B: int, K: int, V: int, itemsize: int, *,
     whole = table if whole_grids is None else whole_grids
     temps = 2 * grid + 2 * wide if whole else 5 * slab
     per = grid + coeffs + wide + narrow + temps + (wide if V > 1 else 0)
+    extra = pipeline_extra_bytes(B, K, V, itemsize) \
+        if overlap == "pipelined" else 0
     return 2 * K * J * itemsize + window_bytes(B, K, lchunk, precision,
                                                itemsize) \
-        + (table_bytes(B, K, itemsize) if table else 0) + V * per
+        + (table_bytes(B, K, itemsize) if table else 0) + V * per + extra
 
 
 def dense_table_host_bytes(B: int, itemsize: int) -> int:
@@ -261,13 +287,15 @@ def device_memory_bytes(device: torch.device) -> int:
 def static_lane_width(B: int, K: int, itemsize: int,
                       device: torch.device, *, lchunk: int | None = None,
                       precision: str = "fp32", table: bool = False,
-                      whole_grids: bool | None = None) -> int:
+                      whole_grids: bool | None = None,
+                      overlap: str = "off") -> int:
     """The V="auto" rule (:data:`V_RULE`)."""
     budget = device_memory_bytes(device) // 2
     fits = [v for v in V_CANDIDATES
             if estimate_batch_bytes(B, K, v, itemsize, lchunk=lchunk,
                                     precision=precision, table=table,
-                                    whole_grids=whole_grids) <= budget]
+                                    whole_grids=whole_grids,
+                                    overlap=overlap) <= budget]
     return max(fits) if fits else 1
 
 
@@ -461,22 +489,24 @@ def _chunk_timer(plan, impl: str, tile: dict, V: int, lchunk, precision):
 
 
 def _candidate_fits(plan, impl, V, tile, n_shards, lchunk, precision,
-                    itemsize) -> bool:
-    """The shared-memory and memory budgets, checked before any launch."""
+                    itemsize, overlap="off") -> bool:
+    """The shared-memory and memory budgets, checked before any launch
+    (a mesh plan's batch in its ``overlap`` mode)."""
     if schedule_smem_bytes(impl, plan.B, V, itemsize, lchunk=lchunk,
                            tl=tile["tl"]) > SMEM_LIMIT_BYTES:
         return False
     need = estimate_batch_bytes(plan.B, plan.n_padded // n_shards, V,
                                 itemsize, lchunk=lchunk, precision=precision,
                                 table=not plan.streaming,
-                                whole_grids=True if n_shards > 1 else None)
+                                whole_grids=True if n_shards > 1 else None,
+                                overlap=overlap if n_shards > 1 else "off")
     return need <= memory_budget_bytes(plan.device)
 
 
 def autotune_dwt(plan, impl: str = "fused", *, Vs=(1,), reps: int = 3,
                  refresh: bool = False, cache: str | os.PathLike | None = None,
                  n_shards: int = 1, lchunk: int | None = None,
-                 precision: str = "fp32") -> dict:
+                 precision: str = "fp32", overlap: str | None = None) -> dict:
     """Measure-and-cache the best (tk, tl, tj, V) of one schedule.
 
     Returns {"tk", "tl", "tj", "V", "per_transform_s"}.  Sweeps the
@@ -496,8 +526,9 @@ def autotune_dwt(plan, impl: str = "fused", *, Vs=(1,), reps: int = 3,
     lane layout (only the recurrence family runs in the sharded paths).
 
     Candidates over the per-block shared memory (:data:`SMEM_LIMIT_BYTES`)
-    or over half the device memory (:func:`estimate_batch_bytes`) are
-    skipped before any launch; a candidate that raises is skipped too,
+    or over half the device memory (:func:`estimate_batch_bytes`, a mesh
+    plan's batch in its ``overlap`` mode, None: :func:`static_overlap`)
+    are skipped before any launch; a candidate that raises is skipped too,
     counted (``autotune.candidate.failed``) and logged.
     """
     if n_shards > 1 and impl not in ("onthefly", "fused"):
@@ -521,6 +552,7 @@ def autotune_dwt(plan, impl: str = "fused", *, Vs=(1,), reps: int = 3,
 
     L, J = plan.B, 2 * plan.B
     K_eff = plan.n_padded // n_shards       # the per-rank cluster problem
+    omode = static_overlap(n_shards) if overlap is None else overlap
     C = plan.gather_m.shape[1]
     itemsize = torch.empty((), dtype=plan.dtype).element_size()
     gen = torch.Generator(device=plan.device).manual_seed(0)
@@ -531,7 +563,7 @@ def autotune_dwt(plan, impl: str = "fused", *, Vs=(1,), reps: int = 3,
         for V in Vs:
             tiles = [t for t in cands
                      if _candidate_fits(plan, impl, V, t, n_shards, lchunk,
-                                        precision, itemsize)]
+                                        precision, itemsize, omode)]
             n_skipped += len(cands) - len(tiles)
             if not tiles:
                 continue

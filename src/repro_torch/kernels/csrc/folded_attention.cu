@@ -27,7 +27,8 @@
 // ~60 operations per byte, so the tensor cores bound it (989 TFLOP/s
 // bf16).
 //
-// bf16 at BQ = 128 (folded_attention_bf16_kernel): FA2's register layout
+// bf16 at BQ = mma_bq(D), 128 up to D = 128 and 64 at D = 192 / 256
+// (folded_attention_bf16_kernel): FA2's register layout
 // on mma.sync, the simple, sound step from scalar FMA.  A block of BQ/16 = 8
 // warps runs one q-block at a time; warp w owns query rows 16w..16w+15.
 // Q, K and V are bf16 tiles in shared memory, row-major by (row, d), rows
@@ -72,16 +73,21 @@
 //   scaled_dot_product_attention reads), within chip_smoke's ATTN_TOL.
 //   Shared memory per block: Q plus two stages of K and V, 5 BQ (DK + 8)
 //   bf16 = 92,160 bytes at D = 64 (two blocks per SM, 128 registers),
-//   174,080 at D = 128 (one block).  What bounds this design: every warp
+//   174,080 at D = 128 (one block).  At D = 192 and 256 that is over the
+//   227 KB of a block at BQ = 128, so the tensor-core kernel runs BQ = 64
+//   there (4 warps, 128,000 / 168,960 bytes, one block per SM; the
+//   accumulator alone is D / 2 registers a thread), and bf16 below BQ 64
+//   takes the scalar kernel.  What bounds this design: every warp
 //   reads the whole K and V tiles with ldmatrix, mma.sync does not reach
 //   the rate of wgmma, and the folded grid's 576 equal blocks at the
 //   serving shape fill 264 block slots in 2.2 waves; wgmma with a TMA ring
 //   and warp specialisation is the next step.
 //
-// f32, and bf16 at BQ < 128: scalar FMA (folded_attention_scalar_kernel).
+// f32, and bf16 at BQ < mma_bq(D): scalar FMA
+// (folded_attention_scalar_kernel).
 // f32 on the tensor cores would be TF32, another function.  bf16 at
-// BQ < 128 (prompts of at most 128 tokens in the serve path, a few
-// microseconds of work) keeps the scalar kernel because its sums run in the
+// BQ < mma_bq(D) (prompts of at most 128 tokens in the serve path, 64 at
+// D = 192 / 256, a few microseconds of work) keeps the scalar kernel because its sums run in the
 // plain version's order: sequential over d and over keys.  At bf16 ties of
 // a short prompt's logits, the tensor cores' order (and torch's
 // scaled_dot_product_attention's) picks another greedy token than the
@@ -89,7 +95,8 @@
 // owns a (BQ/16) x (BQ/16) tile of the scores and a (BQ/16) x ceil(D/16)
 // tile of the accumulator in registers; q, k-or-v and the score tile are
 // f32 in shared memory (rows padded to an odd stride), 199,680 bytes at
-// BQ = 128, D = 128, one block of 256 threads per SM.
+// BQ = 128, D = 128, one block of 256 threads per SM; 148,992 at BQ = 64,
+// D = 256.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -110,7 +117,7 @@ struct Params {
 };
 
 // ===========================================================================
-// scalar FMA from shared memory: f32, and bf16 at BQ < 128
+// scalar FMA from shared memory: f32, and bf16 at BQ < mma_bq(D)
 // ===========================================================================
 
 constexpr int kScalarThreads = 256;
@@ -310,8 +317,14 @@ __global__ void __launch_bounds__(kScalarThreads)
 // bf16: mma.sync tensor cores, FA2's register layout
 // ===========================================================================
 
-// the q-block of the tensor-core kernel
-constexpr int kMmaBQ = 128;
+// The largest q-block of each head width (every kernel's shared memory
+// fits a block's 227 KB): 128 up to D = 128; 64 at D = 192 and 256, where
+// five bf16 tiles at BQ = 128 take 256,000 / 337,920 bytes and the f32
+// scalar kernel's tiles 265,216 / 330,752.
+__host__ __device__ constexpr int max_bq(int d) { return d > 128 ? 64 : 128; }
+
+// the q-block of the tensor-core kernel: the head width's largest
+__host__ __device__ constexpr int mma_bq(int d) { return max_bq(d); }
 
 __host__ __device__ constexpr int bf16_ld(int d) {   // smem row stride
   return (d + 15) / 16 * 16 + 8;
@@ -672,7 +685,7 @@ int start(Kern kern, int threads, int smem, dim3 grid, const Params& p,
   return (int)cudaGetLastError();
 }
 
-// bf16 at BQ = 128 on the tensor cores; f32, and bf16 at smaller BQ, on
+// bf16 at BQ = mma_bq(D) on the tensor cores; f32, and bf16 at smaller BQ, on
 // the scalar kernel
 template <int BQ, int D>
 int launch_t(const Params& p, int is_bf16, int BH, int folded,
@@ -684,7 +697,7 @@ int launch_t(const Params& p, int is_bf16, int BH, int folded,
     return start(folded_attention_scalar_kernel<float, BQ, D>,
                  kScalarThreads, scalar_smem, grid, p, folded, stream,
                  blocks);
-  if constexpr (BQ == kMmaBQ)
+  if constexpr (BQ == mma_bq(D))
     return start(folded_attention_bf16_kernel<BQ, D>, Tile<BQ, D>::kThreads,
                  bf16_smem_bytes(BQ, D), grid, p, folded, stream, blocks);
   else
@@ -701,6 +714,12 @@ int by_d(const Params& p, int is_bf16, int D, int BH, int folded,
     case 36: return launch_t<BQ, 36>(p, is_bf16, BH, folded, s, blocks);
     case 64: return launch_t<BQ, 64>(p, is_bf16, BH, folded, s, blocks);
     case 128: return launch_t<BQ, 128>(p, is_bf16, BH, folded, s, blocks);
+  }
+  if constexpr (BQ <= max_bq(192)) {
+    switch (D) {
+      case 192: return launch_t<BQ, 192>(p, is_bf16, BH, folded, s, blocks);
+      case 256: return launch_t<BQ, 256>(p, is_bf16, BH, folded, s, blocks);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -722,7 +741,7 @@ extern "C" {
 
 // Dynamic shared memory of one block, bytes.
 long long folded_attention_smem_bytes(int bq, int D, int is_bf16) {
-  return is_bf16 && bq == kMmaBQ
+  return is_bf16 && bq == mma_bq(D)
              ? (long long)bf16_smem_bytes(bq, D)
              : (long long)smem_floats(bq, D) * (long long)sizeof(float);
 }
@@ -746,7 +765,7 @@ int folded_attention_launch(const void* q, const void* k, const void* v,
                             int os0, int os1, int os2, int os3,
                             float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S % bq ||
-      (folded && (S / bq) % 2))
+      bq > max_bq(D) || (folded && (S / bq) % 2))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;

@@ -22,15 +22,26 @@ from .runtime import route
 
 __all__ = ["folded_causal_attention", "folded_causal_attention_plain",
            "grid_slots", "schedule_order", "check_kernel_operands",
-           "KERNEL_BQ", "KERNEL_D", "LAUNCHES", "reset_launches"]
+           "KERNEL_BQ", "KERNEL_D", "max_bq", "LAUNCHES",
+           "reset_launches"]
 
 # kernel launches per wrapper; only the CUDA branch adds to it
 LAUNCHES = {"folded_causal_attention": 0}
 
-# the block sizes and head widths the kernel is instantiated for
+# the block sizes and head widths the kernel is instantiated for; a head
+# width takes the block sizes up to max_bq(D)
 KERNEL_BQ = (16, 32, 64, 128)
-KERNEL_D = (32, 36, 64, 128)
+KERNEL_D = (32, 36, 64, 128, 192, 256)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def max_bq(D: int) -> int:
+    """The largest q-block the kernel takes at head width D, in either
+    dtype: 128, or 64 at D > 128, where the tiles of bq 128 (five bf16
+    tiles of the tensor-core kernel, three f32 tiles of the scalar one;
+    csrc/folded_attention.cu ``max_bq``) exceed the 227 KB of shared
+    memory of a block."""
+    return 64 if D > 128 else 128
 
 
 def reset_launches() -> None:
@@ -108,8 +119,9 @@ def folded_causal_attention_plain(q, k, v, *, bq: int, scale: float,
 
 def check_kernel_operands(q, k, v, bq: int) -> None:
     """What the CUDA kernel takes: q (B, Hq, S, D) and k, v (B, Hkv, S, D)
-    of one dtype (float32 or bfloat16) on one device, bq in KERNEL_BQ,
-    D in KERNEL_D, strides that fit 32 bits.  Raise on anything else."""
+    of one dtype (float32 or bfloat16) on one device, bq in KERNEL_BQ
+    up to :func:`max_bq`, D in KERNEL_D, strides that fit 32 bits.  Raise
+    on anything else."""
     name = "folded_causal_attention"
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -130,6 +142,9 @@ def check_kernel_operands(q, k, v, bq: int) -> None:
     if D not in KERNEL_D:
         raise ValueError(f"{name}: the kernel takes head width D in "
                          f"{KERNEL_D}, got {D}")
+    if bq > max_bq(D):
+        raise ValueError(f"{name}: the kernel takes bq up to "
+                         f"{max_bq(D)} at D={D}, got {bq}")
     for t in (q, k, v):
         if t.numel() >= 2**31 or any(st < 0 or st >= 2**31
                                      for st in t.stride()):

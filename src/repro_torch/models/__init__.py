@@ -2,8 +2,12 @@
 
   layers.py     norms, rotary embeddings, MLPs, soft-capping
   attention.py  GQA attention: prefill through the folded attention
-                kernel, KV-cache decode
+                kernel (plain causal layers) or the chunked port
+                (windowed / soft-capped layers), KV-cache and ring decode
+  rglru.py      the RG-LRU recurrent mixer (RecurrentGemma)
+  rwkv6.py      the RWKV-6 time-mix mixer
+  moe.py        the MoE FFN, single-device path
   lm.py         the LM module: prefill, decode_step, logits
   convert.py    weights from the reference's numpy parameter pytree
 """
-from . import attention, convert, layers, lm  # noqa: F401
+from . import attention, convert, layers, lm, moe, rglru, rwkv6  # noqa: F401

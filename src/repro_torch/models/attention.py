@@ -1,20 +1,22 @@
-"""Attention mixer: GQA/MQA/MHA with RoPE, prefill through the
-folded causal attention kernel, and single-token KV-cache decode -- the
-port of ``repro/models/attention.py``.
+"""Attention mixers: GQA/MQA/MHA with RoPE or M-RoPE, the sliding-window
+variant and logit soft-capping, prefill over the whole prompt and
+single-token KV-cache decode -- the port of ``repro/models/attention.py``.
 
-The reference's prefill runs a q-chunked jnp loop (``_chunked_causal``);
-the Pallas kernel ``folded_causal_attention`` computes the same function
-(its oracle equals that module's output).  Here the prefill calls
-:func:`repro_torch.kernels.ops.attention` -- the CUDA kernel on the card,
-its plain version on the CPU -- on transposed views of the (B, S, H, D)
-projections, with S padded at the tail to a multiple of 2 bq.  The
-padding is exact under the causal mask: no real row sees a padded key.
+Which prefill runs.  The Pallas kernel ``folded_causal_attention``
+computes plain causal attention: no window, no soft cap.  A layer whose
+function is that (an ``attn`` layer of a config with ``logit_softcap ==
+0``) calls :func:`repro_torch.kernels.ops.attention` -- the CUDA kernel
+on the card, its plain version on the CPU -- on transposed views of the
+(B, S, H, D) projections, with S padded at the tail to a multiple of
+2 bq; the padding is exact under the causal mask.  A ``local_attn``
+layer, or any layer with a soft cap, runs :func:`chunked_causal`, the
+port of the reference's q-chunked ``_chunked_causal``: no Pallas kernel
+computes that function.  The choice follows the layer's kind and config.
+
 Decode is a single-token einsum, outside any kernel, as in the
-reference.
-
-Not ported (ROADMAP.md queue 1 item 11): sliding-window (``local_attn``)
-layers, logit soft-capping inside attention and M-RoPE positions; a layer
-with any of them raises ``NotImplementedError``.
+reference.  A ``local_attn`` layer keeps a ring buffer of
+L = min(window, max_len) slots (position p at slot p % L); decode writes
+its slot in place.
 """
 from __future__ import annotations
 
@@ -24,23 +26,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import folded_attention, ops
 
 from . import layers
 
 __all__ = ["NEG_INF", "ATTN_BQ", "Attention", "attention_block",
-           "prefill_attention", "cache_init"]
+           "prefill_attention", "chunked_causal", "cache_init"]
 
-NEG_INF = -1e30   # decode's finite mask value, as in the reference
+NEG_INF = -1e30   # finite mask value, as in the reference
 ATTN_BQ = 128     # the kernel's q-block at long prompts
 
 
-def attention_block(S: int) -> int:
+def attention_block(S: int, cap: int = ATTN_BQ) -> int:
     """The kernel's q-block for a prompt of S tokens: the smallest power
-    of two from 16 to ATTN_BQ that covers half of S, so the padding to
-    2 bq stays under one block."""
+    of two from 16 to ``cap`` (the kernel's largest at the head width,
+    :func:`repro_torch.kernels.folded_attention.max_bq`) that covers half
+    of S, so the padding to 2 bq stays under one block."""
     bq = 16
-    while bq < ATTN_BQ and 2 * bq < S:
+    while bq < cap and 2 * bq < S:
         bq *= 2
     return bq
 
@@ -55,7 +58,7 @@ def prefill_attention(q, k, v, attn_fn=None):
     (chip_smoke.py passes the plain version to compare)."""
     attn_fn = ops.attention if attn_fn is None else attn_fn
     S = q.shape[1]
-    bq = attention_block(S)
+    bq = attention_block(S, folded_attention.max_bq(q.shape[-1]))
     Sp = -(-S // (2 * bq)) * (2 * bq)
     if Sp != S:
         pad = (0, 0, 0, 0, 0, Sp - S)
@@ -65,35 +68,63 @@ def prefill_attention(q, k, v, attn_fn=None):
     return out.transpose(1, 2)[:, :S]
 
 
-def cache_init(cfg, batch, max_len, dtype, device=None):
-    """KV cache of one attention layer: k, v (batch, max_len, Hkv, D)."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+def chunked_causal(q, k, v, *, chunk, window, softcap_val, scale):
+    """The reference's q-chunked masked attention, for the layers no
+    kernel computes (a sliding window, a soft cap).  q: (B, S, H, D);
+    k, v: (B, S, Hkv, D).  Scores per chunk (B, Hkv, g, chunk, S) in
+    float32, soft-capped, masked with NEG_INF (causal, and within
+    ``window`` keys when it is > 0), softmax, P V in float32, cast to q's
+    dtype."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    chunk = min(chunk, S)
+    nc = -(-S // chunk)
+    Sp = nc * chunk
+    if Sp != S:
+        q = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    qg = q.reshape(B, nc, chunk, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    kv_pos = torch.arange(S, device=q.device)
+    out = torch.empty((B, Sp, H, D), dtype=q.dtype, device=q.device)
+    for ci in range(nc):
+        q_pos = ci * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg[:, ci].float(), kf) * scale
+        s = layers.softcap(s, softcap_val)
+        mask = kv_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf).to(q.dtype)
+        out[:, ci * chunk:(ci + 1) * chunk] = o.reshape(B, chunk, H, D)
+    return out[:, :S]
+
+
+def cache_init(cfg, batch, max_len, dtype, device=None, window=0):
+    """KV cache of one attention layer: k, v (batch, L, Hkv, D) with
+    L = max_len, or the ring of L = min(window, max_len) slots of a
+    ``local_attn`` layer."""
+    L = min(window, max_len) if window else max_len
+    shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 class Attention(nn.Module):
     """wq (d, q_dim), wk / wv (d, kv_dim), wo (q_dim, d): x @ w, the
-    reference's orientation."""
+    reference's orientation.  ``window`` > 0 makes a ``local_attn``
+    layer."""
 
     def __init__(self, cfg, dtype, generator=None, device=None, *,
                  window=0):
         super().__init__()
-        if window:
-            raise NotImplementedError(
-                "sliding-window attention (local_attn) is not ported yet "
-                "(ROADMAP.md queue 1 item 11)")
-        if cfg.logit_softcap:
-            raise NotImplementedError(
-                "attention with logit_softcap != 0 is not ported yet "
-                "(ROADMAP.md queue 1 item 11)")
-        if cfg.pos_type == "mrope":
-            raise NotImplementedError(
-                "attention with M-RoPE positions is not ported yet "
-                "(ROADMAP.md queue 1 item 11)")
-        if cfg.pos_type not in ("rope", "none"):
+        if cfg.pos_type not in ("rope", "mrope", "none"):
             raise ValueError(cfg.pos_type)
         self.cfg = cfg
+        self.window = window
+        # plain causal attention: what the folded attention kernel computes
+        self.uses_kernel = not window and not cfg.logit_softcap
         d = cfg.d_model
         for name, shape in (("wq", (d, cfg.q_dim)), ("wk", (d, cfg.kv_dim)),
                             ("wv", (d, cfg.kv_dim)), ("wo", (cfg.q_dim, d))):
@@ -101,7 +132,9 @@ class Attention(nn.Module):
                                               device))
 
     def _project(self, x, positions):
-        """q (B, S, H, D), k and v (B, S, Hkv, D), RoPE on q and k."""
+        """q (B, S, H, D), k and v (B, S, Hkv, D), RoPE (positions (B, S),
+        or the first stream of (3, B, S)) or M-RoPE (positions (3, B, S))
+        on q and k."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -109,38 +142,63 @@ class Attention(nn.Module):
         k = (x @ self.wk).view(B, S, Hkv, D)
         v = (x @ self.wv).view(B, S, Hkv, D)
         if cfg.pos_type == "rope":
-            q = layers.rope(q, positions, cfg.rope_theta)
-            k = layers.rope(k, positions, cfg.rope_theta)
+            pos = positions if positions.ndim == 2 else positions[0]
+            q = layers.rope(q, pos, cfg.rope_theta)
+            k = layers.rope(k, pos, cfg.rope_theta)
+        elif cfg.pos_type == "mrope":
+            q = layers.mrope(q, positions, cfg.mrope_sections,
+                             cfg.rope_theta)
+            k = layers.mrope(k, positions, cfg.mrope_sections,
+                             cfg.rope_theta)
         return q, k, v
 
     def prefill(self, x, positions, max_len, cache_dtype, attn_fn=None):
-        """The whole prompt: (out (B, S, d), its KV cache of max_len).
-        The cache holds the prompt's k, v at slots 0..S-1 (the last
-        max_len of them when S >= max_len)."""
+        """The whole prompt: (out (B, S, d), its KV cache).  The cache
+        holds the prompt's k, v at slots 0..S-1, or its last L of them
+        when S >= L, in ring order (position p at slot p % L) for a
+        ``local_attn`` layer.  ``attn_fn`` replaces the kernel call of a
+        plain causal layer (:func:`prefill_attention`); the other layers
+        run :func:`chunked_causal`."""
+        cfg = self.cfg
         B, S, _ = x.shape
         q, k, v = self._project(x, positions)
-        if S >= max_len:
-            cache = {"k": k[:, S - max_len:].to(cache_dtype).clone(),
-                     "v": v[:, S - max_len:].to(cache_dtype).clone()}
+        cache = cache_init(cfg, B, max_len, cache_dtype, x.device,
+                           self.window)
+        L = cache["k"].shape[1]
+        if S >= L:
+            ck, cv = k[:, S - L:], v[:, S - L:]
+            if self.window:
+                ck = torch.roll(ck, S % L, dims=1)
+                cv = torch.roll(cv, S % L, dims=1)
+            cache["k"].copy_(ck)
+            cache["v"].copy_(cv)
         else:
-            cache = cache_init(self.cfg, B, max_len, cache_dtype, x.device)
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
-        out = prefill_attention(q, k, v, attn_fn)
-        return out.reshape(B, S, self.cfg.q_dim) @ self.wo, cache
+        if self.uses_kernel:
+            out = prefill_attention(q, k, v, attn_fn)
+        else:
+            out = chunked_causal(q, k, v, chunk=cfg.attn_chunk,
+                                 window=self.window,
+                                 softcap_val=cfg.logit_softcap,
+                                 scale=1.0 / math.sqrt(cfg.head_dim))
+        return out.reshape(B, S, cfg.q_dim) @ self.wo, cache
 
     def decode_step(self, x1, cache, pos: int):
         """One token at position ``pos``.  x1: (B, 1, d).  Writes its k, v
-        into ``cache`` in place (the reference returns a new cache; the
-        port saves the copy of every layer's cache per token) and
-        returns (out (B, 1, d), cache)."""
+        into ``cache`` in place, at slot pos % L of a ``local_attn``
+        layer's ring (the reference returns a new cache; the port saves
+        the copy of every layer's cache per token), and returns
+        (out (B, 1, d), cache)."""
         cfg = self.cfg
         B = x1.shape[0]
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x1.device)
+        if cfg.pos_type == "mrope":
+            positions = positions[None].expand(3, B, 1)
         q, k1, v1 = self._project(x1, positions)
         L = cache["k"].shape[1]
-        slot = min(pos, L - 1)
+        slot = pos % L if self.window else min(pos, L - 1)
         cache["k"][:, slot] = k1[:, 0]
         cache["v"][:, slot] = v1[:, 0]
         Hkv, D = cfg.num_kv_heads, cfg.head_dim
@@ -148,7 +206,14 @@ class Attention(nn.Module):
         qh = q.view(B, 1, Hkv, g, D)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(),
                          cache["k"].float()) / math.sqrt(D)
-        valid = torch.arange(L, device=x1.device) <= pos
+        s = layers.softcap(s, cfg.logit_softcap)
+        idx = torch.arange(L, device=x1.device)
+        if self.window:
+            # slot i holds position pos - ((slot - i) mod L): valid iff
+            # that is >= 0 (the ring's warmup and its wrap alike)
+            valid = torch.remainder(slot - idx, L) <= pos
+        else:
+            valid = idx <= pos
         s = torch.where(valid, s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", p, cache["v"].float())

@@ -4,11 +4,14 @@ transform plan from the reference's arrays.
 
 :func:`params_from_numpy` takes ``repro.models.lm.init``'s pytree with
 every leaf as a numpy array, unstacks ``params["groups"]`` (leading axis
-G: layer g * len(pattern) + slot) and ``params["tail"]`` into the
-:class:`~repro_torch.models.lm.LM`'s blocks, and copies each array into
-its parameter.  bfloat16 leaves come from JAX as numpy arrays of the
-``bfloat16`` extension dtype; they are read through a uint16 view, so
-nothing here needs that extension.
+G: layer g * len(pattern) + slot) and ``params["tail"]`` (the layers
+past the last whole group) into the :class:`~repro_torch.models.lm.LM`'s
+blocks, and copies each array into the parameter of the same dotted name:
+attention, RG-LRU and RWKV-6 mixers, MLP or MoE (router, wi, wo, shared),
+and the norms' scale and bias.  A leaf without a parameter, or a
+parameter without a leaf, raises.  bfloat16 leaves come from JAX as
+numpy arrays of the ``bfloat16`` extension dtype; they are read through a
+uint16 view, so nothing here needs that extension.
 """
 from __future__ import annotations
 
@@ -40,21 +43,16 @@ def _copy(param, a, where):
     param.data.copy_(t)
 
 
-def _block_leaves(p):
-    """(module path, array) of one block's dict, in the module's names."""
-    yield "norm1.scale", p["norm1"]["scale"]
-    if "bias" in p["norm1"]:
-        yield "norm1.bias", p["norm1"]["bias"]
-    for w in ("wq", "wk", "wv", "wo"):
-        yield f"mixer.{w}", p["mixer"][w]
-    yield "norm2.scale", p["norm2"]["scale"]
-    if "bias" in p["norm2"]:
-        yield "norm2.bias", p["norm2"]["bias"]
-    if "moe" in p:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md "
-                                  "queue 1 item 11)")
-    for w in ("wi", "wo"):
-        yield f"mlp.{w}", p["mlp"][w]
+def _leaves(tree, prefix=""):
+    """(dotted path, array) of every leaf of a nested dict, in the
+    module's names: the port's modules name their parameters as the
+    reference's dicts name their leaves (mixer.w_a, moe.shared.wi, ...)."""
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _leaves(val, path + ".")
+        else:
+            yield path, val
 
 
 def params_from_numpy(cfg, tree, device=None) -> LM:
@@ -78,8 +76,16 @@ def params_from_numpy(cfg, tree, device=None) -> LM:
         raise ValueError(f"tree has {len(layer_trees)} layers, the config "
                          f"{len(model.blocks)}")
     for i, p in enumerate(layer_trees):
-        for path, a in _block_leaves(p):
-            _copy(params[f"blocks.{i}.{path}"], a, f"layer {i} {path}")
+        want = {n for n in params if n.startswith(f"blocks.{i}.")}
+        for path, a in _leaves(p):
+            name = f"blocks.{i}.{path}"
+            if name not in want:
+                raise ValueError(f"layer {i}: the tree's leaf {path} has no "
+                                 f"parameter in the model")
+            _copy(params[name], a, f"layer {i} {path}")
+            want.discard(name)
+        if want:
+            raise ValueError(f"layer {i}: no leaf for {sorted(want)}")
     return model
 
 

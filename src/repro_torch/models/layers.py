@@ -20,7 +20,7 @@ from torch import nn
 __all__ = ["DTYPES", "dtype_of", "rmsnorm", "layernorm", "RMSNorm",
            "LayerNorm", "make_norm", "dense_init", "embed_init", "rope",
            "mrope", "GATED", "PLAIN", "mlp_apply", "MLP", "weight",
-           "softcap"]
+           "param", "normal", "softcap"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -85,18 +85,37 @@ def make_norm(kind, d, device=None) -> nn.Module:
 # the same seed: tests hand both packages the same weights instead)
 # ---------------------------------------------------------------------------
 
+_NORMAL_CHUNK = 1 << 28    # float32 elements drawn at once
+
+
+def normal(generator, shape, scale, dtype, device=None):
+    """scale * N(0, 1) drawn in float32 and cast to ``dtype``.  A tensor
+    of more than 2**28 elements is drawn in slabs along its first axis,
+    so a large bf16 weight (an embedding of 4.7e9 values, a layer of 128
+    experts) never has a float32 copy of its whole."""
+    shape = tuple(shape)
+    if math.prod(shape) <= _NORMAL_CHUNK:
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(_NORMAL_CHUNK // math.prod(shape[1:]), 1)
+    for r0 in range(0, shape[0], rows):
+        n = min(rows, shape[0] - r0)
+        w = torch.randn((n,) + shape[1:], generator=generator,
+                        dtype=torch.float32, device=device)
+        out[r0:r0 + n] = (w * scale).to(dtype)
+    return out
+
+
 def dense_init(generator, d_in, d_out, dtype, scale=None, device=None):
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
-                    device=device)
-    return (w * scale).to(dtype)
+    return normal(generator, (d_in, d_out), scale, dtype, device)
 
 
 def embed_init(generator, vocab, d, dtype, device=None):
     # std 0.02 (GPT/llama convention); keeps tied-head logits ~O(1) at init
-    w = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
-                    device=device)
-    return (w * 0.02).to(dtype)
+    return normal(generator, (vocab, d), 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -182,13 +201,18 @@ class MLP(nn.Module):
         return mlp_apply(x, self.wi, self.wo, self.kind)
 
 
-def weight(generator, d_in, d_out, dtype, device=None):
+def weight(generator, d_in, d_out, dtype, device=None, scale=None):
     """A (d_in, d_out) inference weight: from dense_init when a generator
     is given, else left unset (meta device, or filled by a converter)."""
     if generator is None:
         w = torch.empty((d_in, d_out), dtype=dtype, device=device)
     else:
-        w = dense_init(generator, d_in, d_out, dtype, device=device)
+        w = dense_init(generator, d_in, d_out, dtype, scale, device)
+    return nn.Parameter(w, requires_grad=False)
+
+
+def param(w) -> nn.Parameter:
+    """An inference parameter (no gradient) holding tensor ``w``."""
     return nn.Parameter(w, requires_grad=False)
 
 

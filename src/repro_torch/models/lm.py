@@ -1,17 +1,22 @@
-"""Language model, serving half: embeddings -> blocks -> final norm ->
-tied head; prefill of a prompt batch and one-token decode -- the port of
-``repro/models/lm.py`` (``init``, ``count_params``, ``state_init``,
-``prefill`` with ``_block_prefill`` and its KV-cache write,
-``decode_step``, ``logits_fn``, ``_embed_in``).
+"""Language model, serving half: embeddings (or frontend embeddings) ->
+pattern-cycled blocks -> final norm -> head; prefill of a prompt batch and
+one-token decode -- the port of ``repro/models/lm.py`` (``init``,
+``count_params``, ``count_active_params``, ``state_init``, ``prefill``
+with ``_block_prefill``, ``decode_step`` with ``_block_decode``,
+``logits_fn``, ``_embed_in``).
 
 The reference stacks layers of one pattern slot for ``jax.lax.scan``; here
 the blocks are an ``nn.ModuleList`` in layer order (PyTorch runs eagerly;
 :func:`repro_torch.models.convert.params_from_numpy` unstacks the
-reference's groups).  Decode states are a list of per-layer KV caches.
+reference's groups).  A block's mixer is attention (``attn``,
+``local_attn``), :class:`~repro_torch.models.rglru.RGLRU` or
+:class:`~repro_torch.models.rwkv6.RWKV6`; its FFN is the MLP or, on the
+config's MoE slots, :class:`~repro_torch.models.moe.MoE`.  Decode states
+are a list of per-layer dicts: a KV cache ({"k", "v"}), an RG-LRU state
+({"h", "conv"}) or an RWKV-6 state ({"S", "x_prev"}).
 
-Not ported (ROADMAP.md queue 1 item 11): the rglru / rwkv6 mixers, MoE
-blocks, frontend-embedding inputs, ``forward`` and ``loss_fn``; each
-raises ``NotImplementedError``.
+Not ported (ROADMAP.md queue 1 item 11b): the training half,
+``forward`` and ``loss_fn``; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,59 +27,77 @@ from torch import nn
 
 from repro_torch.core.batched import resolve_device
 
-from . import attention, layers
+from . import attention, layers, moe, rglru, rwkv6
 
-__all__ = ["MIXERS", "Block", "LM", "init", "count_params", "state_init",
-           "forward", "loss_fn"]
+__all__ = ["MIXERS", "Block", "LM", "init", "count_params",
+           "count_active_params", "state_init", "forward", "loss_fn"]
 
 MIXERS = ("attn", "local_attn", "rglru", "rwkv6")
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1 item 11)"
+_TRAINING = "not ported yet (ROADMAP.md queue 1 item 11b)"
 
 
 class Block(nn.Module):
-    """norm1 -> attention mixer -> residual; norm2 -> MLP -> residual."""
+    """norm1 -> mixer -> residual; norm2 -> MLP or MoE -> residual."""
 
     def __init__(self, kind, cfg, dtype, generator=None, device=None, *,
                  use_moe=False):
         super().__init__()
         if kind not in MIXERS:
             raise ValueError(kind)
-        if kind in ("rglru", "rwkv6"):
-            raise NotImplementedError(f"the {kind} mixer is {_NOT_PORTED}")
-        if use_moe:
-            raise NotImplementedError(f"MoE blocks are {_NOT_PORTED}")
+        self.kind = kind
         d = cfg.d_model
         self.norm1 = layers.make_norm(cfg.norm_type, d, device)
-        self.mixer = attention.Attention(
-            cfg, dtype, generator, device,
-            window=cfg.window if kind == "local_attn" else 0)
+        if kind in ("attn", "local_attn"):
+            self.mixer = attention.Attention(
+                cfg, dtype, generator, device,
+                window=cfg.window if kind == "local_attn" else 0)
+        elif kind == "rglru":
+            self.mixer = rglru.RGLRU(cfg, dtype, generator, device)
+        else:
+            self.mixer = rwkv6.RWKV6(cfg, dtype, generator, device)
         self.norm2 = layers.make_norm(cfg.norm_type, d, device)
-        self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_type, dtype, generator,
-                              device)
+        if use_moe:
+            self.moe = moe.MoE(cfg, dtype, generator, device)
+        else:
+            self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_type, dtype,
+                                  generator, device)
+
+    def _ffn(self, x):
+        h = self.norm2(x)
+        return x + (self.moe(h)[0] if hasattr(self, "moe") else self.mlp(h))
 
     def prefill(self, x, positions, max_len, cache_dtype, attn_fn=None):
-        """One block over the full sequence, also emitting its KV cache."""
-        mix, cache = self.mixer.prefill(self.norm1(x), positions, max_len,
-                                        cache_dtype, attn_fn)
-        x = x + mix
-        return x + self.mlp(self.norm2(x)), cache
+        """One block over the full sequence, also emitting its decode
+        state.  ``attn_fn`` reaches a plain causal attention layer's kernel
+        call only."""
+        h = self.norm1(x)
+        if isinstance(self.mixer, attention.Attention):
+            mix, st = self.mixer.prefill(h, positions, max_len, cache_dtype,
+                                         attn_fn)
+        else:
+            mix, st = self.mixer.prefill(h)
+        return self._ffn(x + mix), st
 
-    def decode_step(self, x, cache, pos: int):
-        """One block over a single token, advancing its cache in place."""
-        mix, cache = self.mixer.decode_step(self.norm1(x), cache, pos)
-        x = x + mix
-        return x + self.mlp(self.norm2(x)), cache
+    def decode_step(self, x, state, pos: int):
+        """One block over a single token, advancing its state (a KV cache
+        in place)."""
+        h = self.norm1(x)
+        if isinstance(self.mixer, attention.Attention):
+            mix, st = self.mixer.decode_step(h, state, pos)
+        else:
+            mix, st = self.mixer.decode_step(h, state)
+        return self._ffn(x + mix), st
 
 
 class LM(nn.Module):
     """embed (vocab, d), blocks, final_norm; the head is the embedding
-    (tie_embeddings) or its own (vocab, d) weight."""
+    (tie_embeddings) or its own (vocab, d) weight.  A config with
+    ``embed_inputs`` (audio, vision-language) takes frontend embeddings
+    (B, S, d) instead of tokens; its embedding table still feeds the
+    generated tokens back in decode."""
 
     def __init__(self, cfg, generator=None, device=None):
         super().__init__()
-        if cfg.embed_inputs:
-            raise NotImplementedError(
-                f"frontend-embedding inputs ({cfg.name}) are {_NOT_PORTED}")
         self.cfg = cfg
         dtype = layers.dtype_of(cfg.param_dtype)
         self.dtype = layers.dtype_of(cfg.compute_dtype)
@@ -92,11 +115,20 @@ class LM(nn.Module):
     def head_weight(self):
         return self.head if hasattr(self, "head") else self.embed
 
-    def _embed_in(self, tokens):
-        x = self.embed[tokens].to(self.dtype)
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model),
-                                 dtype=self.dtype, device=x.device)
+    def _embed_in(self, tokens, embeds):
+        cfg = self.cfg
+        if cfg.embed_inputs:
+            if embeds is None:
+                raise ValueError(f"{cfg.name} takes frontend embeddings "
+                                 f"(embeds=), not tokens")
+            x = embeds.to(self.dtype)
+        else:
+            if tokens is None:
+                raise ValueError(f"{cfg.name} takes tokens")
+            x = self.embed[tokens].to(self.dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=self.dtype,
+                                 device=x.device)
         return x
 
     def logits_fn(self, x):
@@ -105,15 +137,23 @@ class LM(nn.Module):
         return layers.softcap(out, self.cfg.logit_softcap)
 
     @torch.no_grad()
-    def prefill(self, tokens, max_len, *, attn_fn=None):
-        """Full-prompt prefill.  tokens: (B, S) integer.  Returns
-        (last-position logits (B, vocab) float32, per-layer KV caches of
-        max_len).  ``attn_fn`` replaces the attention call of every layer
-        (default: :func:`repro_torch.kernels.ops.attention`)."""
-        x = self._embed_in(tokens)
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+    def prefill(self, tokens, max_len, *, embeds=None, positions=None,
+                attn_fn=None):
+        """Full-prompt prefill.  tokens: (B, S) integer, or None with
+        ``embeds`` (B, S, d) for an ``embed_inputs`` config; positions:
+        (B, S), or (3, B, S) for M-RoPE (default arange(S) per row).
+        Returns (last-position logits (B, vocab) float32, per-layer decode
+        states of max_len).  ``attn_fn`` replaces the attention kernel
+        call of every plain causal layer (default:
+        :func:`repro_torch.kernels.ops.attention`)."""
+        x = self._embed_in(tokens, embeds)
+        B, S = x.shape[:2]
+        if positions is None:
+            if self.cfg.pos_type == "mrope":
+                raise ValueError(f"{self.cfg.name}: M-RoPE needs positions "
+                                 f"(3, B, S)")
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device).expand(B, S)
         states = []
         for block in self.blocks:
             x, st = block.prefill(x, positions, max_len, self.dtype, attn_fn)
@@ -122,11 +162,12 @@ class LM(nn.Module):
         return self.logits_fn(x)[:, -1], states
 
     @torch.no_grad()
-    def decode_step(self, tokens, states, pos: int):
-        """One-token decode.  tokens: (B, 1); states: from
-        :meth:`prefill` or :func:`state_init`, advanced in place; pos: the
-        token's position.  Returns (logits (B, vocab) float32, states)."""
-        x = self._embed_in(tokens)
+    def decode_step(self, tokens, states, pos: int, *, embeds=None):
+        """One-token decode.  tokens: (B, 1), or None with ``embeds``
+        (B, 1, d); states: from :meth:`prefill` or :func:`state_init`,
+        advanced (KV caches in place); pos: the token's position.  Returns
+        (logits (B, vocab) float32, states)."""
+        x = self._embed_in(tokens, embeds)
         for i, block in enumerate(self.blocks):
             x, states[i] = block.decode_step(x, states[i], pos)
         x = self.final_norm(x)
@@ -140,7 +181,7 @@ def _embedding(generator, cfg, dtype, device):
     else:
         w = layers.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
                               device)
-    return nn.Parameter(w, requires_grad=False)
+    return layers.param(w)
 
 
 def init(cfg, generator, device=None) -> LM:
@@ -154,21 +195,46 @@ def count_params(cfg) -> int:
     return sum(p.numel() for p in LM(cfg, device="meta").parameters())
 
 
+def count_active_params(cfg) -> int:
+    """Active parameters per token: every wi / wo under a block's MoE
+    counts top_k / num_experts of its size, the router whole.  As in the
+    reference's count, that takes the shared experts' wi / wo at the
+    routed share too."""
+    model = LM(cfg, device="meta")
+    total = sum(p.numel() for p in model.parameters())
+    if cfg.moe is None:
+        return total
+    expert = sum(p.numel() for name, p in model.named_parameters()
+                 if ".moe." in name and name.rsplit(".", 1)[1] in ("wi",
+                                                                   "wo"))
+    m = cfg.moe
+    return total - expert + int(expert * m.top_k / m.num_experts)
+
+
+def _layer_state(cfg, kind, batch, max_len, dtype, device):
+    if kind in ("attn", "local_attn"):
+        return attention.cache_init(
+            cfg, batch, max_len, dtype, device,
+            window=cfg.window if kind == "local_attn" else 0)
+    if kind == "rglru":
+        return rglru.state_init(cfg, batch, dtype, device)
+    if kind == "rwkv6":
+        return rwkv6.state_init(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
 def state_init(cfg, batch, max_len, dtype=None, device=None):
-    """Empty decode states: one KV cache per layer."""
+    """Empty decode states, one per layer: KV caches (a ring of
+    min(window, max_len) for ``local_attn``), RG-LRU and RWKV-6 states."""
     dtype = dtype or layers.dtype_of(cfg.compute_dtype)
     device = resolve_device(device)
-    for kind in cfg.layer_kinds():
-        if kind != "attn":
-            raise NotImplementedError(f"{kind} decode state is "
-                                      f"{_NOT_PORTED}")
-    return [attention.cache_init(cfg, batch, max_len, dtype, device)
-            for _ in range(cfg.num_layers)]
+    return [_layer_state(cfg, kind, batch, max_len, dtype, device)
+            for kind in cfg.layer_kinds()]
 
 
 def forward(*args, **kwargs):
-    raise NotImplementedError(f"lm.forward (training) is {_NOT_PORTED}")
+    raise NotImplementedError(f"lm.forward (training) is {_TRAINING}")
 
 
 def loss_fn(*args, **kwargs):
-    raise NotImplementedError(f"lm.loss_fn (training) is {_NOT_PORTED}")
+    raise NotImplementedError(f"lm.loss_fn (training) is {_TRAINING}")

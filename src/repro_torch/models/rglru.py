@@ -1,0 +1,132 @@
+"""Griffin / RecurrentGemma recurrent block (RG-LRU + temporal conv) -- the
+port of ``repro/models/rglru.py`` and of the prefill in
+``repro/models/lm.py`` (``_rglru_prefill``).
+
+Block (De et al., arXiv:2402.19427):
+    x -> [gelu(W_gate x)] * RGLRU(conv1d_4(W_branch x)) -> W_out
+
+RG-LRU (diagonal gated linear recurrence):
+    r_t = sigmoid(W_a x_t + b_a)          recurrence gate
+    i_t = sigmoid(W_x x_t + b_x)          input gate
+    log a_t = -c * softplus(Lambda) * r_t (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+All recurrence math in float32.  The reference's prefill runs
+``jax.lax.associative_scan``; torch has none, so :func:`linear_scan` is a
+log-depth doubling scan over the (a, b) pairs in torch ops (its sums are
+grouped otherwise than XLA's, equal within rounding).  Decode carries
+(h, conv tail) state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers
+
+__all__ = ["C_GATE", "CONV_W", "RGLRU", "linear_scan", "state_init"]
+
+C_GATE = 8.0
+CONV_W = 4
+
+
+def _lam(d):
+    """Lambda so that a = sigmoid(Lambda)^c lies in ~[0.9, 0.999]: the
+    reference's numpy expression (its own seeded generator), so both
+    packages hold the same bits."""
+    u = np.random.default_rng(0).uniform(0.9, 0.999, d)
+    return np.log(np.expm1(-np.log(u ** (1 / C_GATE)))).astype(np.float32)
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1, in
+    ceil(log2 S) doubling steps: after the step of offset o, (a_t, b_t)
+    holds the composition of the pairs t-2o+1..t, combined as the
+    reference's ``combine`` does ((a1, b1), (a2, b2)) -> (a1 a2,
+    a2 b1 + b2).  Returns h (the b of every position)."""
+    S = a.shape[1]
+    off = 1
+    while off < S:
+        b = torch.cat([b[:, :off],
+                       torch.addcmul(b[:, off:], a[:, off:], b[:, :-off])],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+class RGLRU(nn.Module):
+    """The recurrent mixer: w_gate, w_branch, w_a, w_x, w_out (d, d) in
+    the model's dtype; conv (CONV_W, d) in the model's dtype; b_a, b_x,
+    lam (d,) float32 -- the reference's leaves and names."""
+
+    def __init__(self, cfg, dtype, generator=None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        for name in ("w_gate", "w_branch"):
+            setattr(self, name, layers.weight(generator, d, d, dtype,
+                                              device))
+        if generator is None:
+            conv = torch.empty((CONV_W, d), dtype=dtype, device=device)
+        else:
+            conv = layers.normal(generator, (CONV_W, d), 0.1, dtype, device)
+        self.conv = layers.param(conv)
+        self.w_a = layers.weight(generator, d, d, dtype, device)
+        self.b_a = layers.param(torch.zeros(d, device=device))
+        self.w_x = layers.weight(generator, d, d, dtype, device)
+        self.b_x = layers.param(torch.zeros(d, device=device))
+        lam = torch.empty(d, device=device)
+        if not lam.is_meta:
+            lam.copy_(torch.from_numpy(_lam(d)))
+        self.lam = layers.param(lam)
+        self.w_out = layers.weight(generator, d, d, dtype, device)
+
+    def _gates(self, u):
+        """Per-step gates (float32).  u: (..., d) branch activations."""
+        uf = u.float()
+        r = torch.sigmoid(uf @ self.w_a.float() + self.b_a)
+        i = torch.sigmoid(uf @ self.w_x.float() + self.b_x)
+        a = torch.exp(-C_GATE * F.softplus(self.lam) * r)
+        gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+        return a, gated_in
+
+    def _causal_conv(self, u):
+        """Width-4 causal depthwise temporal conv.  u: (B, S, d)."""
+        w = self.conv.float()
+        pad = F.pad(u.float(), (0, 0, CONV_W - 1, 0))
+        S = u.shape[1]
+        out = sum(pad[:, i:i + S] * w[i] for i in range(CONV_W))
+        return out.to(u.dtype)
+
+    def _gate(self, x):
+        return F.gelu(x.float() @ self.w_gate.float(), approximate="tanh")
+
+    def prefill(self, x):
+        """Full sequence x (B, S, d) -> (out (B, S, d), decode state
+        {"h": (B, d) float32, "conv": the last CONV_W - 1 branch inputs})."""
+        gate = self._gate(x)
+        ub = x @ self.w_branch
+        a, gin = self._gates(self._causal_conv(ub))
+        h = linear_scan(a, gin)
+        out = (gate * h).to(x.dtype) @ self.w_out
+        return out, {"h": h[:, -1], "conv": ub[:, -(CONV_W - 1):]}
+
+    def decode_step(self, x1, state):
+        """One token x1 (B, 1, d) -> (out (B, 1, d), new state)."""
+        gate = self._gate(x1)                                   # (B, 1, d)
+        ub = x1 @ self.w_branch                                 # (B, 1, d)
+        hist = torch.cat([state["conv"], ub], dim=1)            # (B, 4, d)
+        u = torch.einsum("bwd,wd->bd", hist.float(), self.conv.float())
+        a, gin = self._gates(u[:, None, :].to(x1.dtype))        # (B, 1, d)
+        h = a[:, 0] * state["h"] + gin[:, 0]
+        y = (gate[:, 0] * h).to(x1.dtype)[:, None, :]
+        return y @ self.w_out, {"h": h, "conv": hist[:, 1:]}
+
+
+def state_init(cfg, batch, dtype, device=None):
+    d = cfg.d_model
+    return {"h": torch.zeros((batch, d), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, CONV_W - 1, d), dtype=dtype,
+                                device=device)}

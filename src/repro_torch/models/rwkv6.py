@@ -1,0 +1,171 @@
+"""RWKV-6 "Finch" time-mix layer (Peng et al., arXiv:2404.05892) -- the port
+of ``repro/models/rwkv6.py`` and of the prefill in ``repro/models/lm.py``
+(``_rwkv6_prefill``).
+
+The data-dependent per-channel decay w_t = exp(-exp(w0 + tanh(x_w A_w)
+B_w)) drives a matrix-valued recurrence per head (head dim D, state S in
+R^{D x D}):
+
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+Token shift is RWKV's ddlerp; per-head GroupNorm and silu(g) gating close
+the block.  The prefill is a sequential scan over time on float32
+(B, H, D, D) state, as in the reference (a chunked formulation is not in
+the reference): :func:`scan` issues one launch a step and forms the
+readouts of SCAN_BLOCK steps at once.  Decode runs the same step
+(:func:`mix_step`).  All state math float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers
+
+__all__ = ["LORA_RKVG", "LORA_W", "STREAMS", "SCAN_BLOCK", "RWKV6",
+           "mix_step", "scan", "state_init"]
+
+LORA_RKVG = 32
+LORA_W = 64
+STREAMS = ("w", "k", "v", "r", "g")
+
+
+SCAN_BLOCK = 64    # time steps whose states the prefill keeps at once
+
+
+def _readout(r, S, kv, u):
+    """y = r^T (S + diag(u) kv) over any leading axes; r: (..., H, D),
+    S and kv: (..., H, D, D)."""
+    return torch.einsum("...hk,...hkv->...hv", r, S + u[:, :, None] * kv)
+
+
+def mix_step(S, r, k, v, w, u):
+    """One recurrence step.  S: (B, H, Dk, Dv); r, k, v, w: (B, H, D);
+    u: (H, D).  Returns (S_new, y (B, H, D))."""
+    kv = k[..., :, None] * v[..., None, :]                  # (B, H, Dk, Dv)
+    y = _readout(r, S, kv, u)
+    return torch.addcmul(kv, w[..., :, None], S), y
+
+
+def scan(r, k, v, w, u):
+    """The prefill's recurrence over T steps from S = 0.  r, k, v, w:
+    (B, T, H, D) float32.  Returns (y (B, T, H, D), the last state).
+
+    Sequential in time, as the reference's ``lax.scan`` (the step is
+    :func:`mix_step`'s arithmetic).  The time axis is walked in blocks of
+    SCAN_BLOCK steps: a block's k v^T products are formed at once, each
+    step is one launch writing its state into the block's state stack,
+    and the block's readouts are one batched einsum over the stack, so
+    the host issues one launch a step instead of seven."""
+    B, T, H, D = r.shape
+    S = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    ys = []
+    for t0 in range(0, T, SCAN_BLOCK):
+        n = min(SCAN_BLOCK, T - t0)
+        blk = slice(t0, t0 + n)
+        kv = (k[:, blk, :, :, None] * v[:, blk, :, None, :]).transpose(0, 1)
+        wb = w[:, blk, :, :, None].transpose(0, 1)
+        states = torch.empty((n + 1, B, H, D, D), dtype=torch.float32,
+                             device=r.device)
+        states[0] = S
+        for i in range(n):
+            torch.addcmul(kv[i], wb[i], states[i], out=states[i + 1])
+        ys.append(_readout(r[:, blk].transpose(0, 1), states[:n], kv,
+                           u).transpose(0, 1))
+        S = states[n].clone()       # not a view that holds the block
+    return torch.cat(ys, dim=1), S
+
+
+class RWKV6(nn.Module):
+    """The time-mix mixer with the reference's leaves and names: mu_x,
+    w0 (d,), u, ln_scale (H, D), mu_<s>, A_<s> (d, r), B_<s> (r, d) in
+    float32; w_r, w_k, w_v, w_g, w_o (d, d) in the model's dtype."""
+
+    def __init__(self, cfg, dtype, generator=None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        D = cfg.rwkv_head_dim
+        H = d // D
+        self.H, self.D = H, D
+        f32 = torch.float32
+        self.mu_x = layers.param(torch.zeros(d, device=device))
+        # mild initial decay, the reference's constant
+        self.w0 = layers.param(torch.full((d,), -0.5, device=device))
+        u = torch.empty((H, D), device=device) if generator is None else \
+            layers.normal(generator, (H, D), 0.1, f32, device)
+        self.u = layers.param(u)
+        for name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
+            setattr(self, name, layers.weight(generator, d, d, dtype,
+                                              device))
+        self.ln_scale = layers.param(torch.zeros((H, D), device=device))
+        for s in STREAMS:
+            r = LORA_W if s == "w" else LORA_RKVG
+            setattr(self, f"mu_{s}", layers.param(torch.zeros(
+                d, device=device)))
+            setattr(self, f"A_{s}", layers.weight(generator, d, r, f32,
+                                                  device, 0.01))
+            setattr(self, f"B_{s}", layers.weight(generator, r, d, f32,
+                                                  device, 0.01))
+
+    def _ddlerp(self, x, x_prev):
+        """Data-dependent token shift.  x, x_prev: (..., d) -> the five
+        streams' mixed inputs (float32)."""
+        xf = x.float()
+        dx = x_prev.float() - xf
+        xxx = xf + self.mu_x * dx
+        out = {}
+        for s in STREAMS:
+            lora = torch.tanh(xxx @ getattr(self, f"A_{s}")) \
+                @ getattr(self, f"B_{s}")
+            out[s] = xf + dx * (getattr(self, f"mu_{s}") + lora)
+        return out
+
+    def _streams(self, mixed, dtype):
+        """r, k, v (float32), g (float32), w in (0, 1), each (..., H, D)."""
+        r = mixed["r"].to(dtype) @ self.w_r
+        k = mixed["k"].to(dtype) @ self.w_k
+        v = mixed["v"].to(dtype) @ self.w_v
+        g = F.silu(mixed["g"] @ self.w_g.float())
+        logw = -torch.exp(self.w0 + torch.tanh(mixed["w"] @ self.A_w)
+                          @ self.B_w)
+        shp = r.shape[:-1] + (self.H, self.D)
+        return (r.reshape(shp).float(), k.reshape(shp).float(),
+                v.reshape(shp).float(), g.reshape(shp),
+                torch.exp(logw).reshape(shp))
+
+    def _head_norm(self, y):
+        """Per-head GroupNorm (float32).  y: (..., H, D)."""
+        mu = torch.mean(y, dim=-1, keepdim=True)
+        var = torch.var(y, dim=-1, keepdim=True, unbiased=False)
+        return (y - mu) * torch.rsqrt(var + 1e-5) * (1.0 + self.ln_scale)
+
+    def prefill(self, x):
+        """Full sequence x (B, T, d) -> (out (B, T, d), decode state
+        {"S": the last step's (B, H, D, D) float32, "x_prev": x[:, -1]})."""
+        B, T, d = x.shape
+        x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        r, k, v, g, w = self._streams(self._ddlerp(x, x_prev), x.dtype)
+        y, S = scan(r, k, v, w, self.u)
+        y = self._head_norm(y) * g
+        out = y.reshape(B, T, d).to(x.dtype) @ self.w_o
+        return out, {"S": S, "x_prev": x[:, -1]}
+
+    def decode_step(self, x1, state):
+        """One token x1 (B, 1, d) -> (out (B, 1, d), new state)."""
+        B, _, d = x1.shape
+        r, k, v, g, w = self._streams(
+            self._ddlerp(x1[:, 0], state["x_prev"]), x1.dtype)
+        S, y = mix_step(state["S"], r, k, v, w, self.u)
+        y = self._head_norm(y) * g
+        y = y.reshape(B, 1, d).to(x1.dtype) @ self.w_o
+        return y, {"S": S, "x_prev": x1[:, 0]}
+
+
+def state_init(cfg, batch, dtype, device=None):
+    d = cfg.d_model
+    D = cfg.rwkv_head_dim
+    return {"S": torch.zeros((batch, d // D, D, D), dtype=torch.float32,
+                             device=device),
+            "x_prev": torch.zeros((batch, d), dtype=dtype, device=device)}

@@ -28,7 +28,11 @@ import threading
 import time
 
 __all__ = ["Recorder", "span", "add_span", "inc", "observe", "counter",
-           "time_fn", "check_chrome_trace", "get_recorder", "set_recorder"]
+           "time_fn", "check_chrome_trace", "get_recorder", "set_recorder",
+           "device_annotation", "TRACE_ENV"]
+
+# set (to anything but "", "0" or "false") to turn device_annotation on
+TRACE_ENV = "REPRO_OBS_TORCH_TRACE"
 
 
 class Recorder:
@@ -150,6 +154,17 @@ class Recorder:
                 out[n] = q
         return out
 
+    def rows(self) -> list[dict]:
+        """Flat dict rows, one per histogram and one per counter:
+        ``{"kind": "histogram", "name", **quantiles}`` and
+        ``{"kind": "counter", "name", "count"}``, the reference's shape."""
+        out = []
+        for name, q in self.summary().items():
+            out.append({"kind": "histogram", "name": name, **q})
+        for name, n in sorted(self.counters().items()):
+            out.append({"kind": "counter", "name": name, "count": n})
+        return out
+
     # -- export ---------------------------------------------------------
 
     def chrome_trace(self) -> dict:
@@ -214,6 +229,17 @@ def observe(name: str, value: float) -> None:
 
 def counter(name: str) -> int:
     return get_recorder().counter(name)
+
+
+def device_annotation(name: str):
+    """A ``torch.profiler.record_function(name)`` range around a dispatch
+    site when ``$REPRO_OBS_TORCH_TRACE`` is set, so the host span lines up
+    with the device timeline of a surrounding ``torch.profiler`` capture;
+    else a ``contextlib.nullcontext()`` that costs nothing."""
+    if os.environ.get(TRACE_ENV, "") not in ("", "0", "false"):
+        import torch
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def check_chrome_trace(doc: dict, required_names=()) -> list[str]:

@@ -125,13 +125,15 @@ def _padded_clusters(B: int) -> int:
 
 
 def _check_device_memory(B: int, itemsize: int, device, *, table: bool,
-                         lchunk, precision: str, mesh: bool) -> None:
+                         lchunk, precision: str, mesh: bool,
+                         overlap: str = "off") -> None:
     """Refuse a plan whose V = 1 transform does not fit the device (the
-    dense table included; a mesh plan's executor on whole grids), before
-    anything is built."""
+    dense table included; a mesh plan's executor on whole grids, in its
+    overlap mode), before anything is built."""
     need = autotune.estimate_batch_bytes(
         B, _padded_clusters(B), 1, itemsize, lchunk=lchunk,
-        precision=precision, table=table, whole_grids=mesh or None)
+        precision=precision, table=table, whole_grids=mesh or None,
+        overlap=overlap)
     have = autotune.device_memory_bytes(device)
     if need > have:
         raise ValueError(
@@ -163,8 +165,10 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
             f"B={B} plan was built streaming (d=None); use the recurrence "
             f"family (impl='fused'/'onthefly') or plan with "
             f"streaming=False")
+    omode = _resolve_overlap(overlap, n_shards)
     mem = dict(lchunk=lchunk, precision=precision,
-               table=not soft_plan.streaming, whole_grids=mesh or None)
+               table=not soft_plan.streaming, whole_grids=mesh or None,
+               overlap=omode if mesh else "off")
     if V == "auto":
         V = autotune.static_lane_width(B, K, itemsize, soft_plan.device,
                                        **mem)
@@ -179,8 +183,7 @@ def _static_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
                     autotune.estimate_batch_bytes(B, K, V, itemsize, **mem),
                     lchunk, precision,
                     autotune.window_bytes(B, K, lchunk, precision, itemsize),
-                    n_shards=n_shards,
-                    overlap=_resolve_overlap(overlap, n_shards))
+                    n_shards=n_shards, overlap=omode)
 
 
 def _measured_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
@@ -209,7 +212,7 @@ def _measured_schedule(soft_plan: SoftPlan, impl: str, V, tl: int, lchunk,
                                     cache=cache, n_shards=n_shards,
                                     lchunk=lchunk,
                                     precision=precision if im == "fused"
-                                    else "fp32")
+                                    else "fp32", overlap=overlap)
         if best is None or cfg["per_transform_s"] < best["per_transform_s"]:
             best, best_impl = cfg, im
     if mesh is not None:
@@ -809,7 +812,9 @@ def plan(B: int, dtype=torch.float64, *, impl: str = "auto", V="auto",
         lchunk = auto if lchunk is None else lchunk
     _check_device_memory(B, itemsize, device, table=not streaming,
                          lchunk=lchunk, precision=precision,
-                         mesh=mesh is not None)
+                         mesh=mesh is not None,
+                         overlap="off" if mesh is None
+                         else _resolve_overlap(overlap, n_shards))
     with obs.span("plan.build", B=B, impl=impl, tune=mode,
                   mesh=mesh is not None, streaming=bool(streaming),
                   device=str(device)):

@@ -310,3 +310,147 @@ def test_mma_arithmetic_within_chip_limits(D, fault):
     assert passes == (fault is None), r
     if fault is None:
         assert not torch.equal(got, want)   # the sums' order does differ
+
+
+# ---------------------------------------------------------------------------
+# the attention mixer's other layers: window, soft cap, M-RoPE
+# ---------------------------------------------------------------------------
+
+def _mixer_pair(arch, seed, **over):
+    """The reference's attn params of reduced ``arch`` (with ``over``)
+    and the port's Attention module holding them."""
+    import dataclasses
+    import jax
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    cj = dataclasses.replace(jconfigs.reduced(arch), **over)
+    ct = dataclasses.replace(tconfigs.reduced(arch), **over)
+    p = jattn.attn_init(jax.random.key(seed), cj, jnp.float32)
+    window = ct.window                  # > 0 only for recurrentgemma
+    mod = tattn.Attention(ct, torch.float32, window=window)
+    for name, a in p.items():
+        getattr(mod, name).data.copy_(torch.from_numpy(np.array(a)))
+    return cj, ct, p, mod, window
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("recurrentgemma-9b", {}),                      # window 32, softcap 30
+    ("recurrentgemma-9b", {"logit_softcap": 0.0}),  # window only
+    ("gemma-7b", {"logit_softcap": 30.0}),          # softcap only
+    ("qwen2-vl-7b", {}),                            # M-RoPE, kernel layers
+])
+def test_mixer_prefill_and_decode_match_reference(arch, over):
+    """Prefill output and cache, then decode past the window (the ring
+    wraps: prompt 40, 12 steps, window 32) against the reference's
+    attn_apply / _block_prefill's cache / decode_step.  Windowed and
+    soft-capped layers run chunked_causal; plain ones the kernel's plain
+    version (uses_kernel)."""
+    cj, ct, p, mod, window = _mixer_pair(arch, 5, **over)
+    assert mod.uses_kernel == (not window and not ct.logit_softcap)
+    rng = np.random.default_rng(6)
+    Bx, S, steps = 2, 40, 12
+    x = rng.normal(size=(Bx, S, ct.d_model)).astype(np.float32)
+    if ct.pos_type == "mrope":
+        pos = np.stack([np.tile(np.arange(S), (Bx, 1)) + i
+                        for i in range(3)]).astype(np.int32)
+    else:
+        pos = np.tile(np.arange(S, dtype=np.int32), (Bx, 1))
+    want = jattn.attn_apply(p, jnp.asarray(x), cj, jnp.asarray(pos),
+                            window=window)
+    max_len = S + steps
+    got, cache = mod.prefill(torch.from_numpy(x), torch.from_numpy(pos),
+                             max_len, torch.float32)
+    assert _rel_err(got.numpy(), want) < TOL["float32"]
+    L = min(window, max_len) if window else max_len
+    assert cache["k"].shape == (Bx, L, ct.num_kv_heads, ct.head_dim)
+    jcache = jattn.cache_init(cj, Bx, max_len, jnp.float32, window=window)
+    _, k, v = jattn._project(p, jnp.asarray(x), cj, jnp.asarray(pos))
+    if window:     # the reference prefill's ring order: p at slot p % L
+        jcache = {"k": jnp.roll(k[:, S - L:], S % L, axis=1),
+                  "v": jnp.roll(v[:, S - L:], S % L, axis=1)}
+    else:
+        jcache = {"k": jcache["k"].at[:, :S].set(k),
+                  "v": jcache["v"].at[:, :S].set(v)}
+    for key in ("k", "v"):
+        assert _rel_err(cache[key].numpy(), jcache[key]) < TOL["float32"]
+    for i in range(steps):
+        x1 = rng.normal(size=(Bx, 1, ct.d_model)).astype(np.float32)
+        jout, jcache = jattn.decode_step(p, jnp.asarray(x1), cj, jcache,
+                                         jnp.int32(S + i), window=window)
+        tout, cache = mod.decode_step(torch.from_numpy(x1), cache, S + i)
+        assert _rel_err(tout.numpy(), jout) < TOL["float32"], i
+    for key in ("k", "v"):
+        assert _rel_err(cache[key].numpy(), jcache[key]) < TOL["float32"]
+
+
+@pytest.mark.parametrize("window,softcap,S", [(16, 0.0, 50), (0, 20.0, 37),
+                                              (8, 30.0, 64), (64, 0.0, 20)])
+def test_chunked_causal_matches_reference(window, softcap, S):
+    rng = np.random.default_rng(S + window)
+    q, k, v = (rng.normal(size=(2, S, H, 16)).astype(np.float32)
+               for H in (4, 2, 2))
+    kw = dict(chunk=16, window=window, softcap_val=softcap, scale=0.25)
+    want = jattn._chunked_causal(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), **kw)
+    got = tattn.chunked_causal(*(torch.from_numpy(a) for a in (q, k, v)),
+                               **kw)
+    _close(got.numpy(), want, TOL["float32"])
+
+
+def test_local_cache_init_is_the_ring():
+    import dataclasses
+    from repro_torch import configs as tconfigs
+    cfg = dataclasses.replace(tconfigs.reduced("recurrentgemma-9b"))
+    assert tattn.cache_init(cfg, 2, 100, torch.float32, window=32)["k"] \
+        .shape[1] == 32
+    assert tattn.cache_init(cfg, 2, 20, torch.float32, window=32)["k"] \
+        .shape[1] == 20
+    assert tattn.cache_init(cfg, 2, 100, torch.float32)["k"].shape[1] == 100
+
+
+# ---------------------------------------------------------------------------
+# head widths 192 and 256 (gemma-7b, nemotron-4-340b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 4, 256), (6, 2, 192)])
+def test_wide_heads_match_reference(dtype, Hq, Hkv, D):
+    """The plain version at D = 192 / 256 and the kernel's largest block
+    there (max_bq: 64) against the Pallas kernel in interpret mode and the
+    reference's oracle, at small S."""
+    bq = tfa.max_bq(D)
+    assert bq == 64
+    arrays = _qkv(1, Hq, Hkv, 128, D, seed=D, scales=(0.3, 0.3, 1.0))
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    got = tops.attention(tq, tk, tv, bq=bq, bk=bq).float().numpy()
+    _close(got, jops.attention(jq, jk, jv, bq=bq, bk=bq)
+           .astype(jnp.float32), TOL[dtype])
+    _close(got, jref.attention_ref(jq, jk, jv).astype(jnp.float32),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_wide_heads_prefill_caps_the_block(D):
+    """The LM prefill caps bq at max_bq(D) = 64: a 2100-token prompt takes
+    bq 64, padded to 2176, and the kernel's checks accept it; bq 128 at
+    these widths is refused before any launch."""
+    assert tattn.attention_block(2100, tfa.max_bq(D)) == 64
+    assert tattn.attention_block(2100) == 128
+    q = torch.zeros((1, 2, 2176, D), dtype=torch.bfloat16)
+    tfa.check_kernel_operands(q, q, q, 64)
+    with pytest.raises(ValueError, match="bq up to 64"):
+        tfa.check_kernel_operands(q, q, q, 128)
+    rng = np.random.default_rng(D)
+    qn, kn, vn = (rng.normal(size=(1, 70, H, D)).astype(np.float32) * 0.3
+                  for H in (2, 1, 1))
+    want = jattn._chunked_causal(jnp.asarray(qn), jnp.asarray(kn),
+                                 jnp.asarray(vn), chunk=32, window=0,
+                                 softcap_val=0.0, scale=1.0 / np.sqrt(D))
+    got = tattn.prefill_attention(*(torch.from_numpy(a)
+                                    for a in (qn, kn, vn)))
+    _close(got.numpy(), want, TOL["float32"])

@@ -43,6 +43,7 @@ def test_import_loads_no_jax_or_reference():
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]
+    + list((ROOT / "examples").glob("torch_*.py"))
     + list((ROOT / "tools").glob("*.py"))),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):

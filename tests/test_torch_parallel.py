@@ -344,3 +344,72 @@ def test_mesh_plan_describe_and_cache(mesh):
     with pytest.raises(ValueError, match="needs a mesh plan"):
         tplan(8, device="cpu").inverse_batch(
             tsoft.random_coeffs(8, 0)[None], overlap="pipelined")
+
+
+# ---------------------------------------------------------------------------
+# the pipelined batch's memory estimate and the executor's annotations
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, V", [(8, 1), (8, 4), (128, 8)])
+def test_pipelined_estimate_adds_the_pipeline_buffers(B, V):
+    """estimate_batch_bytes(overlap="pipelined") exceeds the "off" count
+    by exactly the buffers its docstring names, per lane: the second
+    receive slot and the next chunk's send buffer (K x 2B rows of 16 lanes
+    each) and the next chunk's stage-1 working set, the larger of the
+    forward's (the FFT output grid (2B)^3 complex and the member gather,
+    K x 2B x 16) and the inverse's (the packed operand K x B x 16, the
+    kernel result and its flipped copy, 2 x K x 2B x 16)."""
+    K, itemsize = B * (B + 1) // 2, 8
+    off = autotune.estimate_batch_bytes(B, K, V, itemsize, whole_grids=True)
+    pipe = autotune.estimate_batch_bytes(B, K, V, itemsize, whole_grids=True,
+                                         overlap="pipelined")
+    slot = K * 2 * B * 16 * itemsize
+    grid = (2 * B) ** 3 * 2 * itemsize
+    narrow = K * B * 16 * itemsize
+    stage1 = max(grid + slot, narrow + 2 * slot)
+    assert pipe - off == V * (2 * slot + stage1) \
+        == autotune.pipeline_extra_bytes(B, K, V, itemsize)
+    assert autotune.estimate_batch_bytes(B, K, V, itemsize,
+                                         overlap="off") == \
+        autotune.estimate_batch_bytes(B, K, V, itemsize)
+
+
+def test_mesh_plan_counts_its_overlap_mode(mesh):
+    """A mesh plan's describe()["batch_bytes"] is the estimate in its own
+    overlap mode: "off" (the one-shard default) and an explicit
+    "pipelined"."""
+    kw = dict(device="cpu", mesh=mesh, axis=("data",), V=2)
+    off = tplan(8, **kw)
+    pipe = tplan(8, overlap="pipelined", **kw)
+    K = off.soft_plan.n_padded
+    assert off.describe()["overlap"] == "off"
+    assert off.describe()["batch_bytes"] == autotune.estimate_batch_bytes(
+        8, K, 2, 8, whole_grids=True)
+    assert pipe.describe()["overlap"] == "pipelined"
+    assert pipe.describe()["batch_bytes"] == off.describe()["batch_bytes"] \
+        + autotune.pipeline_extra_bytes(8, K, 2, 8)
+
+
+def test_executor_annotates_its_dispatch(mesh, monkeypatch):
+    """Each chunk of an "off" batch and each pipelined batch runs inside
+    obs.device_annotation("executor.chunk.<direction>" /
+    "executor.pipeline.<direction>"), as the reference's executor does."""
+    import contextlib
+    from repro_torch import obs
+    seen = []
+
+    def record(name):
+        seen.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(obs, "device_annotation", record)
+    t = tplan(8, device="cpu", mesh=mesh, axis=("data",), V=2)
+    fhats = np.stack([tsoft.random_coeffs(8, s) for s in range(3)])
+    fs = t.inverse_batch(fhats, overlap="off")
+    t.forward_batch(fs, overlap="off")
+    assert seen == ["executor.chunk.inverse"] * 2 + \
+        ["executor.chunk.forward"] * 2
+    seen.clear()
+    fs = t.inverse_batch(fhats, overlap="pipelined")
+    t.forward_batch(fs, overlap="pipelined")
+    assert seen == ["executor.pipeline.inverse", "executor.pipeline.forward"]
