@@ -154,7 +154,24 @@ Phases (any failure exits non-zero):
      sm_90, and profile_so3 --bandwidth 16 --check;
  11. examples/torch_quickstart.py and examples/torch_rotational_matching.py
      --bandwidth 16 as subprocesses on the card: exit 0 with their "OK" /
-     "rotation recovered" lines.
+     "rotation recovered" lines;
+ 12. (every plan freed first) LM training: 12a. smollm-135m at its
+     published width and depth (bf16) through repro_torch.launch.train
+     .main, AdamW, global batch 8 x 2048 in microbatches of 4, 8 steps,
+     checkpoints to a temporary directory: 8 finite losses, each step
+     once, no restart event (a device fault would restart the trainer),
+     no hand-kernel launch (training runs chunked_causal, as the
+     reference does); ms per step (steps 2-7), tokens/s, peak memory,
+     train_mfu against the bf16 spec peak, and a torch.profiler trace of
+     one step (OUT/profile_train.txt); 12b. one make_train_step on the
+     card against one on the CPU at the 2-layer full-width cut in
+     float32, AdamW (one step) and Adafactor + int8 (two steps, so that
+     step 0's error-feedback residual feeds step 1), within TRAIN_TOL,
+     and the causal mask shifted one key outside it, as are the planted
+     error-feedback faults (residual not fed back, never stored); 12c. a planted RuntimeError
+     (one restart, every step once), a planted KeyboardInterrupt replay
+     (losses within rel 1e-5 of an uninterrupted run) and the card's
+     checkpoint restored on the CPU.
 The line before the last is one JSON object {"kernels": [...]} (eleven
 kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
 the output directory OUT.
@@ -3276,6 +3293,433 @@ def measured_tuning(counts: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 2048, 8, 4
+TRAIN_CUT = 2                        # layers of the 12b / 12c cut
+TRAIN_CUT_SEQ, TRAIN_CUT_BATCH = 256, 2
+
+# Phase 12b, make_train_step on the card against the same steps on the
+# CPU, smollm-135m at full width cut to 2 layers, float32 (no TF32), from
+# the same weights and batches: one AdamW step, and two Adafactor + int8
+# steps (step 1 quantizes its gradient plus step 0's residual).
+# Readings: "loss" and "grad_norm" the worst over steps of |card - cpu| /
+# |cpu|; "update" the largest over leaves of ||d_card - d_cpu|| /
+# ||d_cpu||, d a leaf's update over the steps; "state" the same of the
+# optimizer's state leaves; "err" the largest over the error-feedback
+# residuals of the share of elements that moved (moved_share: by more
+# than half the largest |e_cpu| of their 2048-element block, a quarter of
+# the block's int8 step; only elements on a rounding boundary move).
+# Fixed before the first card run from the CPU rehearsal of the single
+# step, the port against the reference package (loss 8.7e-8, grad norm
+# 1.4e-6, update 2.5e-4 AdamW / 3.2e-4 Adafactor + int8, state 1.1e-5 /
+# 3.8e-5) and the planted fault, the causal mask shifted one key (loss
+# 2.7e-4, grad norm 4.0e-3, update 0.75 / 0.57); "err" from
+# tests/test_torch_train.py's ERR_SHARE (three steps of the reduced
+# config: sound 1.5-1.9e-2, residual not fed back 0.58-0.59, never
+# stored 0.52-0.54).  The same rehearsal of the two Adafactor + int8
+# steps reads update 9.4e-4, state 9.5e-4, err 1.5e-3.  Phase 12b fails
+# unless every planted fault is rejected, the error-feedback ones by
+# "err".
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-2,
+             "state": 1e-2, "err": 0.1}
+
+_TRAIN_BUCKETS = (("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+                  ("softmax / logsumexp", ("softmax", "Softmax",
+                                           "logsumexp")),
+                  ("reduce / norm", ("reduce", "Reduce", "norm")),
+                  ("index / gather / scatter", ("index", "gather",
+                                                "scatter", "embedding")),
+                  ("copy / cast / elementwise", ("elementwise", "copy",
+                                                 "Copy", "cast", "fill")))
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Model FLOPs of one training step: 6 N tokens (N = every parameter,
+    the tied head's matmul included) plus 12 L B S^2 H D for the attention
+    scores and P V, forward and backward, over the full S x S that
+    chunked_causal computes (remat's recompute is not counted)."""
+    from repro_torch.models import lm
+    n = lm.count_params(cfg)
+    dense = 6 * n * batch * seq
+    attn = 12 * cfg.num_layers * batch * seq * seq * cfg.num_heads \
+        * cfg.head_dim
+    return {"params": n, "dense": dense, "attention": attn,
+            "total": dense + attn}
+
+
+def train_path() -> dict:
+    """Phase 12a: repro_torch.launch.train.main for smollm-135m at its
+    published width and depth (bf16), AdamW, global batch 8 x 2048 in
+    microbatches of 4, 8 steps, checkpoints to a temporary directory.
+    Gates: 8 finite losses, each step once, no restart event, no hand
+    kernel launched (the training forward runs chunked_causal, as the
+    reference's does).  Then a torch.profiler trace of one more step of a
+    fresh model (after one untraced step), written to
+    OUT/profile_train.txt: the device's idle share is that of the traced
+    window, whose host time the tracer lengthens."""
+    import math
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.ckpt import latest_step
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launch_train
+
+    cfg = configs.get(TRAIN_ARCH)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--microbatch", str(TRAIN_MICRO), "--opt", "adamw",
+            "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tr = launch_train.main(argv + ["--ckpt-dir", d])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        saved = latest_step(d)
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches()
+    if any(launches.values()):
+        fail(f"12a: hand kernels launched during training: {launches}")
+    events = [h for h in tr.history if "event" in h]
+    if events:
+        fail(f"12a: the trainer restarted (a device fault would show so): "
+             f"{events}")
+    hist = [h for h in tr.history if "loss" in h]
+    if [h["step"] for h in hist] != list(range(TRAIN_STEPS)):
+        fail(f"12a: steps {[h['step'] for h in hist]}, not each of "
+             f"0..{TRAIN_STEPS - 1} once")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"12a: non-finite losses {[h['loss'] for h in hist]}")
+    if saved != TRAIN_STEPS - 1:
+        fail(f"12a: the last checkpoint is step {saved}")
+    steady = [h["step_s"] for h in hist[2:]]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops["total"] / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    res = {"arch": TRAIN_ARCH, "dtype": cfg.param_dtype,
+           "steps": TRAIN_STEPS, "global_batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatch": TRAIN_MICRO,
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms_each": [1e3 * h["step_s"] for h in hist],
+           "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_bytes": peak, "wall_s": wall_s, "flops": flops,
+           "train_mfu": mfu, "events": len(events), "launches": launches}
+    log(f"  losses {['%.4f' % x for x in res['losses']]}; steps 2-"
+        f"{TRAIN_STEPS - 1}: {step_ms:.1f} ms/step (host clock, "
+        f"synchronized), {res['tokens_per_s']:.0f} tokens/s; peak device "
+        f"memory {peak} bytes; {TRAIN_STEPS} steps + checkpoints in "
+        f"{wall_s:.1f} s")
+    log(f"  train_mfu {mfu:.4f}: (6 N tokens + attention) = "
+        f"{flops['total']:.4g} FLOP a step over the H100 SXM dense bf16 "
+        f"spec peak {PEAK_FLOPS['bfloat16']:.4g} FLOP/s (N = "
+        f"{flops['params']}); no restart event, no hand-kernel launch")
+
+    # one more step of a fresh model under the profiler
+    model, st, err = tr._fresh_state()
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch_at(0).items()}
+    box = [model, st, err]
+
+    def step():
+        box[0], box[1], box[2], _ = tr.step_fn(box[0], box[1], box[2],
+                                               batch, 2)
+
+    step()                  # warm: cuBLAS handles, the allocator's pool
+    prof, wall_ms = trace_window(step, OUT / "profile_train.txt", rows=50)
+    buckets, busy, kernels = device_buckets(prof.key_averages(),
+                                            _TRAIN_BUCKETS, "other")
+    idle = log_buckets("one training step", wall_ms, busy, buckets,
+                       width=28)
+    for ms, n, key in sorted(kernels, reverse=True)[:8]:
+        log(f"    {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    res["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                      "idle_share": idle, "buckets_ms": buckets}
+    if any(all_launches().values()):
+        fail(f"12a: hand kernels launched in the profiled step: "
+             f"{all_launches()}")
+    del box, model, st, err, batch, tr, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def planted_chunked_causal(q, k, v, *, chunk, window, softcap_val, scale):
+    """repro_torch.models.attention.chunked_causal with the causal mask
+    shifted one key (position i sees keys up to i + 1): the fault phase
+    12b must reject.  No window, no soft cap (smollm-135m has neither)."""
+    import torch
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    s = torch.where(pos[None, :] <= pos[:, None] + 1, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).to(q.dtype) \
+        .reshape(B, S, H, D)
+
+
+def _train_cut():
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=TRAIN_CUT,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def one_train_step(cfg, tree, batches, opt: str, comp: str, device) -> dict:
+    """make_train_step from numpy weights ``tree`` on ``device``, one step
+    for each of ``batches``: each step's metrics, the leaves before and
+    after, the optimizer and error-feedback state, all on the host."""
+    import torch
+    from repro_torch.ckpt.checkpoint import flatten_paths
+    from repro_torch.models import convert
+    from repro_torch.optim import OptConfig, init_opt
+    from repro_torch.train import TrainConfig, compress, make_train_step
+
+    tcfg = TrainConfig(grad_compression=comp, opt=OptConfig(
+        name=opt, peak_lr=1e-3, warmup_steps=0, decay_steps=100))
+    model = convert.params_from_numpy(cfg, tree, device).trainable()
+    p0 = {k: v.cpu().clone() for k, v in convert.stacks(model).items()}
+    st = init_opt(tcfg.opt, convert.stacks(model))
+    err = compress.init_error_state(convert.stacks(model)) \
+        if comp == "int8" else None
+    step_fn, metrics = make_train_step(cfg, tcfg), []
+    for s, batch in enumerate(batches):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        model, st, err, m = step_fn(model, st, err, batch, s)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "p0": p0,
+            "p1": {k: v.cpu() for k, v in convert.stacks(model).items()},
+            "state": {k: v.cpu() for k, v in flatten_paths(st).items()},
+            "err": None if err is None else {k: v.cpu()
+                                             for k, v in err.items()}}
+
+
+def moved_share(got, want, block: int = 2048) -> float:
+    """Share of the elements of residual ``got`` that differ from ``want``
+    by more than half the largest |want| of their ``block``-element block
+    (the int8 blocks of repro_torch.train.compress)."""
+    import torch
+    got, want = got.double().reshape(-1), want.double().reshape(-1)
+    pad = (-want.numel()) % block
+    wb = torch.nn.functional.pad(want, (0, pad)).reshape(-1, block)
+    gb = torch.nn.functional.pad(got, (0, pad)).reshape(-1, block)
+    half = wb.abs().amax(dim=1, keepdim=True)
+    moved = ((gb - wb).abs() > 0.5 * half).reshape(-1)[:want.numel()]
+    return float(moved.double().mean())
+
+
+def train_readings(got: dict, want: dict) -> dict:
+    """TRAIN_TOL's readings of the steps ``got`` against ``want``."""
+    def l2(a, b):
+        return float((a.double() - b.double()).norm()
+                     / max(float(b.double().norm()), 1e-30))
+
+    out = {k: max(abs(g[k] - w[k]) / abs(w[k])
+                  for g, w in zip(got["metrics"], want["metrics"]))
+           for k in ("loss", "grad_norm")}
+    out["update"] = max(l2(got["p1"][k] - got["p0"][k],
+                           want["p1"][k] - want["p0"][k])
+                        for k in want["p1"])
+    out["state"] = max(l2(got["state"][k].float(), want["state"][k].float())
+                       for k in want["state"] if k != "step")
+    if want["err"] is not None:
+        out["err"] = max(moved_share(got["err"][k], want["err"][k])
+                         for k in want["err"])
+    return out
+
+
+def planted_ef_faults():
+    """The error-feedback faults phase 12b must reject, each a
+    replacement for repro_torch.train.compress.ef_quantize: the residual
+    left out of the next step's quantization, and never stored."""
+    import torch
+    from repro_torch.train import compress
+    real = compress.ef_quantize
+
+    def not_fed_back(g, err):
+        return real(g, torch.zeros_like(err))
+
+    def not_stored(g, err):
+        q, scale, _ = real(g, err)
+        return q, scale, err
+    return {"residual not fed back": not_fed_back,
+            "residual not stored": not_stored}
+
+
+def train_parity() -> dict:
+    """Phase 12b: make_train_step on the card and on the CPU (the port
+    both times) at the 2-layer full-width cut, float32, from the same
+    numpy weights (a seeded CPU model) and batches: one AdamW step, two
+    Adafactor + int8 steps; every reading within TRAIN_TOL, and each
+    planted fault in the card run outside it (the causal mask shifted one
+    key; with int8 also the error-feedback faults, by the "err"
+    reading)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import attention, convert, lm
+    from repro_torch.train import compress
+
+    cfg = _train_cut()
+    tree = convert.tree_to_numpy(lm.init(cfg, torch.Generator()
+                                         .manual_seed(0), "cpu"))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_CUT_SEQ,
+                                  global_batch=TRAIN_CUT_BATCH))
+    out = {}
+    for opt, comp, steps in (("adamw", "none", 1), ("adafactor", "int8", 2)):
+        t0 = time.perf_counter()
+        batches = [data.batch_at(s) for s in range(steps)]
+        cpu = one_train_step(cfg, tree, batches, opt, comp, "cpu")
+        card = one_train_step(cfg, tree, batches, opt, comp, DEV)
+        faults = {"mask shifted one key": (attention, "chunked_causal",
+                                           planted_chunked_causal, None)}
+        if comp == "int8":
+            faults.update({name: (compress, "ef_quantize", fn, "err")
+                           for name, fn in planted_ef_faults().items()})
+        sound = train_readings(card, cpu)
+        over = [k for k, v in sound.items() if v > TRAIN_TOL[k]]
+        log(f"  {opt} + {comp}, {steps} step(s): card vs CPU "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sound.items()))
+        if over:
+            fail(f"12b: {opt} + {comp}: card differs from the CPU beyond "
+                 f"TRAIN_TOL in {over}: {sound}")
+        planted = {}
+        for name, (mod, attr, fn, key) in faults.items():
+            real = getattr(mod, attr)
+            setattr(mod, attr, fn)
+            try:
+                bad = one_train_step(cfg, tree, batches, opt, comp, DEV)
+            finally:
+                setattr(mod, attr, real)
+            r = train_readings(bad, cpu)
+            caught = [k for k, v in r.items() if v > TRAIN_TOL[k]]
+            log(f"    planted ({name}): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+                + f"; rejected by {caught}")
+            if not caught or (key is not None and key not in caught):
+                fail(f"12b: {opt} + {comp}: TRAIN_TOL does not reject the "
+                     f"planted fault ({name}) by {key or 'any reading'}: "
+                     f"{r}")
+            planted[name] = {"readings": r, "rejected_by": caught}
+        log(f"    ({time.perf_counter() - t0:.1f} s)")
+        out[f"{opt}_{comp}"] = {
+            "steps": steps, "sound": sound, "planted": planted,
+            "losses": [[m["loss"] for m in cpu["metrics"]],
+                       [m["loss"] for m in card["metrics"]]]}
+    return out
+
+
+def train_fault_tolerance() -> dict:
+    """Phase 12c, at the 2-layer full-width cut on the card (float32,
+    batch 2 x 256, checkpoints every 2 steps): a planted RuntimeError at
+    step 5 gives exactly one restart and each of steps 0-7 once; a
+    planted KeyboardInterrupt before step 6, then a new Trainer, replays
+    steps 5-9 with the losses of an uninterrupted run (rel 1e-5, the
+    reference's tests/test_fault_tolerance.py); the card's last
+    checkpoint restores on the CPU (restore_to_device) equal to the
+    card's final state."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import restore_to_device
+    from repro_torch.ckpt.checkpoint import flatten_paths
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = _train_cut()
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_CUT_SEQ,
+                                  global_batch=TRAIN_CUT_BATCH))
+
+    def tcfg(d, steps):
+        return TrainConfig(steps=steps, ckpt_every=2, ckpt_dir=d,
+                           keep_ckpts=3, opt=OptConfig(
+                               peak_lr=1e-3, warmup_steps=2,
+                               decay_steps=100))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as base:
+        t0 = time.perf_counter()
+        crashed = []
+
+        def crash(step):
+            if step == 5 and not crashed:
+                crashed.append(step)
+                raise RuntimeError("simulated node failure")
+
+        tr = Trainer(cfg, tcfg(f"{base}/crash", 8), data, device=DEV)
+        model, opt_state = tr.run(fail_hook=crash)
+        events = [h for h in tr.history if "event" in h]
+        seen = [h["step"] for h in tr.history if "loss" in h]
+        if len(events) != 1 or "simulated node failure" not in \
+                events[0]["event"] or seen != list(range(8)):
+            fail(f"12c: crash at step 5: events {events}, steps {seen}")
+        card = flatten_paths(Trainer._tree(model, opt_state, None))
+        cpu_tr = Trainer(cfg, tcfg(f"{base}/crash", 8), data, device="cpu")
+        template = Trainer._tree(*cpu_tr._fresh_state())
+        step, tree, _ = restore_to_device(f"{base}/crash", template, "cpu")
+        restored = flatten_paths(tree)
+        same = step == 7 and restored.keys() == card.keys() and all(
+            v.device.type == "cpu" and torch.equal(v, card[k].cpu())
+            for k, v in restored.items())
+        if not same:
+            fail(f"12c: the card's step-{step} checkpoint restored on the "
+                 f"CPU differs from the card's final state")
+        out["crash"] = {"events": len(events), "steps": seen,
+                        "restored_on_cpu_equal": same,
+                        "s": time.perf_counter() - t0}
+        log(f"  RuntimeError at step 5: 1 restart, steps 0-7 once; the "
+            f"step-7 checkpoint restored on the CPU equals the card's "
+            f"final state ({out['crash']['s']:.1f} s)")
+        del model, opt_state, card, restored, tree, template, cpu_tr
+
+        t0 = time.perf_counter()
+
+        def preempt(step):
+            if step == 6:
+                raise KeyboardInterrupt
+
+        tr1 = Trainer(cfg, tcfg(f"{base}/preempt", 10), data, device=DEV)
+        try:
+            tr1.run(fail_hook=preempt)
+            fail("12c: the planted KeyboardInterrupt did not stop the run")
+        except KeyboardInterrupt:
+            tr1.ckpt.wait()
+        tr2 = Trainer(cfg, tcfg(f"{base}/preempt", 10), data, device=DEV)
+        tr2.run()
+        l2 = {h["step"]: h["loss"] for h in tr2.history if "loss" in h}
+        shutil.rmtree(f"{base}/preempt")
+        tr3 = Trainer(cfg, tcfg(f"{base}/preempt", 10), data, device=DEV)
+        tr3.run()
+        l3 = {h["step"]: h["loss"] for h in tr3.history if "loss" in h}
+        worst = max(abs(l2[s] - l3[s]) / abs(l3[s]) for s in l2)
+        if sorted(l2) != list(range(5, 10)) or not worst <= 1e-5:
+            fail(f"12c: replay steps {sorted(l2)}, worst loss rel error "
+                 f"{worst:.3e} (rel 1e-5)")
+        out["replay"] = {"steps": sorted(l2), "worst_rel": worst,
+                         "s": time.perf_counter() - t0}
+        log(f"  KeyboardInterrupt before step 6: a new Trainer replays steps "
+            f"5-9, losses within {worst:.3e} of an uninterrupted run (rel "
+            f"1e-5) ({out['replay']['s']:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3514,6 +3958,20 @@ def main() -> int:
 
     log("== 11. the SO(3) examples on the card")
     examples = examples_on_card()
+    free_plans()
+
+    log(f"== 12. LM training on the card: {TRAIN_ARCH}")
+    t12 = time.perf_counter()
+    log(f"  12a. repro_torch.launch.train.main: full width and depth, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, microbatch {TRAIN_MICRO}, "
+        f"{TRAIN_STEPS} steps")
+    train = train_path()
+    log(f"  12b. card against CPU: {TRAIN_CUT} layers at full width, "
+        f"float32, batch {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ}")
+    train_par = train_parity()
+    log("  12c. fault tolerance on the card")
+    train_ft = train_fault_tolerance()
+    log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
@@ -3532,6 +3990,7 @@ def main() -> int:
         if name == "folded_causal_attention":
             kernels.append(attention_record(name, meta, attn, serve,
                                             archs))
+            kernels[-1]["launches_train"] = train["launches"].get(name, 0)
             continue
         main_rec = {**recs, **srecs, **trecs, **orecs}[name]
         extra = {"f32_B64": {**recs32, **srecs32, **trecs32, **orecs32}[name]}
@@ -3580,6 +4039,7 @@ def main() -> int:
                 mesh_counts["pipelined"]["launches"].get(name, 0),
             "launches_mesh_match_batch16": mesh_match_counts.get(name, 0),
             "launches_measured_tuning": tune_counts.get(name, 0),
+            "launches_train": train["launches"].get(name, 0),
         })
         if name in ("dwt_fused", "idwt_fused"):
             kernels[-1]["more"].update({
@@ -3615,6 +4075,8 @@ def main() -> int:
                "mesh_matching_b128": mesh_match,
                "mesh_tol": [MESH_RTOL, MESH_ATOL],
                "measured_tuning": tuned,
+               "train_path": train, "train_parity": train_par,
+               "train_fault_tolerance": train_ft, "train_tol": TRAIN_TOL,
                "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke_summary.json").write_text(json.dumps(

@@ -1,13 +1,17 @@
-"""The port's LM stack, serving half (``repro/models``):
+"""The port's LM stack (``repro/models``):
 
   layers.py     norms, rotary embeddings, MLPs, soft-capping
   attention.py  GQA attention: prefill through the folded attention
                 kernel (plain causal layers) or the chunked port
-                (windowed / soft-capped layers), KV-cache and ring decode
+                (windowed / soft-capped layers), KV-cache and ring decode;
+                training through the chunked port in every layer
   rglru.py      the RG-LRU recurrent mixer (RecurrentGemma)
   rwkv6.py      the RWKV-6 time-mix mixer
   moe.py        the MoE FFN, single-device path
-  lm.py         the LM module: prefill, decode_step, logits
-  convert.py    weights from the reference's numpy parameter pytree
+  lm.py         the LM module: prefill, decode_step, logits; forward and
+                loss_fn for training
+  convert.py    weights from the reference's numpy parameter pytree; the
+                reference's stacked leaves over the port's layers
+                (leaf_groups) for the optimizer and checkpoints
 """
 from . import attention, convert, layers, lm, moe, rglru, rwkv6  # noqa: F401

@@ -13,6 +13,11 @@ layer, or any layer with a soft cap, runs :func:`chunked_causal`, the
 port of the reference's q-chunked ``_chunked_causal``: no Pallas kernel
 computes that function.  The choice follows the layer's kind and config.
 
+Training (:meth:`Attention.forward`, the reference's ``attn_apply``)
+runs :func:`chunked_causal` for every layer, as the reference trains
+through its jnp ``_chunked_causal``: the Pallas kernel has no gradient,
+and neither has the CUDA one.
+
 Decode is a single-token einsum, outside any kernel, as in the
 reference.  A ``local_attn`` layer keeps a ring buffer of
 L = min(window, max_len) slots (position p at slot p % L); decode writes
@@ -151,6 +156,19 @@ class Attention(nn.Module):
             k = layers.mrope(k, positions, cfg.mrope_sections,
                              cfg.rope_theta)
         return q, k, v
+
+    def forward(self, x, positions):
+        """Training attention over a whole sequence (the reference's
+        ``attn_apply``): projections, :func:`chunked_causal` for every
+        layer, ``wo``.  x: (B, S, d) -> (B, S, d)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q, k, v = self._project(x, positions)
+        out = chunked_causal(q, k, v, chunk=cfg.attn_chunk,
+                             window=self.window,
+                             softcap_val=cfg.logit_softcap,
+                             scale=1.0 / math.sqrt(cfg.head_dim))
+        return out.reshape(B, S, cfg.q_dim) @ self.wo
 
     def prefill(self, x, positions, max_len, cache_dtype, attn_fn=None):
         """The whole prompt: (out (B, S, d), its KV cache).  The cache

@@ -6,6 +6,9 @@ weights.  Norms, rotary embeddings and activations compute in float32
 and cast back to the input's dtype where the reference does, so a bf16
 model rounds at the same places.  Weights keep the reference's
 orientation: a dense layer is ``x @ w`` with ``w`` of shape (d_in, d_out).
+Every parameter is created without a gradient (serving needs none);
+:meth:`repro_torch.models.lm.LM.trainable` switches gradients on for
+training.
 """
 from __future__ import annotations
 
@@ -53,9 +56,8 @@ def layernorm(x, scale, bias, eps=1e-5):
 class RMSNorm(nn.Module):
     def __init__(self, d, device=None):
         super().__init__()
-        self.scale = nn.Parameter(torch.zeros(d, dtype=torch.float32,
-                                              device=device),
-                                  requires_grad=False)
+        self.scale = param(torch.zeros(d, dtype=torch.float32,
+                                       device=device))
 
     def forward(self, x):
         return rmsnorm(x, self.scale)
@@ -65,8 +67,8 @@ class LayerNorm(nn.Module):
     def __init__(self, d, device=None):
         super().__init__()
         kw = dict(dtype=torch.float32, device=device)
-        self.scale = nn.Parameter(torch.zeros(d, **kw), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(d, **kw), requires_grad=False)
+        self.scale = param(torch.zeros(d, **kw))
+        self.bias = param(torch.zeros(d, **kw))
 
     def forward(self, x):
         return layernorm(x, self.scale, self.bias)
@@ -202,17 +204,21 @@ class MLP(nn.Module):
 
 
 def weight(generator, d_in, d_out, dtype, device=None, scale=None):
-    """A (d_in, d_out) inference weight: from dense_init when a generator
-    is given, else left unset (meta device, or filled by a converter)."""
+    """A (d_in, d_out) weight, created without a gradient (see
+    :func:`param`): from dense_init when a generator is given, else left
+    unset (meta device, or filled by a converter)."""
     if generator is None:
         w = torch.empty((d_in, d_out), dtype=dtype, device=device)
     else:
         w = dense_init(generator, d_in, d_out, dtype, scale, device)
-    return nn.Parameter(w, requires_grad=False)
+    return param(w)
 
 
 def param(w) -> nn.Parameter:
-    """An inference parameter (no gradient) holding tensor ``w``."""
+    """A parameter holding tensor ``w``, created without a gradient:
+    serving runs under ``torch.no_grad``, and
+    :meth:`repro_torch.models.lm.LM.trainable` sets ``requires_grad`` on
+    every parameter of a model that trains."""
     return nn.Parameter(w, requires_grad=False)
 
 

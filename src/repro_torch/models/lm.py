@@ -1,22 +1,28 @@
-"""Language model, serving half: embeddings (or frontend embeddings) ->
-pattern-cycled blocks -> final norm -> head; prefill of a prompt batch and
-one-token decode -- the port of ``repro/models/lm.py`` (``init``,
-``count_params``, ``count_active_params``, ``state_init``, ``prefill``
-with ``_block_prefill``, ``decode_step`` with ``_block_decode``,
-``logits_fn``, ``_embed_in``).
+"""Language model: embeddings (or frontend embeddings) -> pattern-cycled
+blocks -> final norm -> head -- the port of ``repro/models/lm.py``:
+serving (``init``, ``count_params``, ``count_active_params``,
+``state_init``, ``prefill`` with ``_block_prefill``, ``decode_step`` with
+``_block_decode``, ``logits_fn``, ``_embed_in``) and training
+(``forward``, ``loss_fn`` with its chunked cross-entropy).
 
 The reference stacks layers of one pattern slot for ``jax.lax.scan``; here
 the blocks are an ``nn.ModuleList`` in layer order (PyTorch runs eagerly;
 :func:`repro_torch.models.convert.params_from_numpy` unstacks the
-reference's groups).  A block's mixer is attention (``attn``,
-``local_attn``), :class:`~repro_torch.models.rglru.RGLRU` or
+reference's groups, and :func:`~repro_torch.models.convert.leaf_groups`
+names the layers of each stacked leaf for the optimizer).  A block's
+mixer is attention (``attn``, ``local_attn``),
+:class:`~repro_torch.models.rglru.RGLRU` or
 :class:`~repro_torch.models.rwkv6.RWKV6`; its FFN is the MLP or, on the
 config's MoE slots, :class:`~repro_torch.models.moe.MoE`.  Decode states
 are a list of per-layer dicts: a KV cache ({"k", "v"}), an RG-LRU state
 ({"h", "conv"}) or an RWKV-6 state ({"S", "x_prev"}).
 
-Not ported (ROADMAP.md queue 1 item 11b): the training half,
-``forward`` and ``loss_fn``; each raises ``NotImplementedError``.
+Training runs the plain attention (``chunked_causal``) in every layer,
+as the reference does; ``cfg.remat`` "block" recomputes each pattern
+group in the backward (``torch.utils.checkpoint``), "nested" each
+segment of about sqrt(G) groups.  Parameters are created without a
+gradient; :meth:`LM.trainable` switches them on.  The sharded path
+(``ctx``) is not ported (ROADMAP.md queue 1 item 11c) and raises.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.batched import resolve_device
 
@@ -33,7 +40,8 @@ __all__ = ["MIXERS", "Block", "LM", "init", "count_params",
            "count_active_params", "state_init", "forward", "loss_fn"]
 
 MIXERS = ("attn", "local_attn", "rglru", "rwkv6")
-_TRAINING = "not ported yet (ROADMAP.md queue 1 item 11b)"
+_SHARDED = ("the sharded training path (ctx=) is not ported yet "
+            "(ROADMAP.md queue 1 item 11c)")
 
 
 class Block(nn.Module):
@@ -65,6 +73,21 @@ class Block(nn.Module):
     def _ffn(self, x):
         h = self.norm2(x)
         return x + (self.moe(h)[0] if hasattr(self, "moe") else self.mlp(h))
+
+    def forward(self, x, positions):
+        """Training: one block over the full sequence.  Returns (x, aux),
+        aux the MoE's load-balance loss (0.0 without MoE)."""
+        h = self.norm1(x)
+        if isinstance(self.mixer, attention.Attention):
+            x = x + self.mixer(h, positions)
+        else:
+            x = x + self.mixer(h)
+        h = self.norm2(x)
+        if hasattr(self, "moe"):
+            f, aux = self.moe(h)
+        else:
+            f, aux = self.mlp(h), 0.0
+        return x + f, aux
 
     def prefill(self, x, positions, max_len, cache_dtype, attn_fn=None):
         """One block over the full sequence, also emitting its decode
@@ -115,6 +138,13 @@ class LM(nn.Module):
     def head_weight(self):
         return self.head if hasattr(self, "head") else self.embed
 
+    def trainable(self, flag: bool = True) -> "LM":
+        """Set ``requires_grad`` on every parameter (created without a
+        gradient for serving); returns the model."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
+
     def _embed_in(self, tokens, embeds):
         cfg = self.cfg
         if cfg.embed_inputs:
@@ -148,12 +178,7 @@ class LM(nn.Module):
         :func:`repro_torch.kernels.ops.attention`)."""
         x = self._embed_in(tokens, embeds)
         B, S = x.shape[:2]
-        if positions is None:
-            if self.cfg.pos_type == "mrope":
-                raise ValueError(f"{self.cfg.name}: M-RoPE needs positions "
-                                 f"(3, B, S)")
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=x.device).expand(B, S)
+        positions = _positions(self.cfg, positions, B, S, x.device)
         states = []
         for block in self.blocks:
             x, st = block.prefill(x, positions, max_len, self.dtype, attn_fn)
@@ -232,9 +257,79 @@ def state_init(cfg, batch, max_len, dtype=None, device=None):
             for kind in cfg.layer_kinds()]
 
 
-def forward(*args, **kwargs):
-    raise NotImplementedError(f"lm.forward (training) is {_TRAINING}")
+def _positions(cfg, positions, B, S, device):
+    if positions is not None:
+        return positions
+    if cfg.pos_type == "mrope":
+        raise ValueError(f"{cfg.name}: M-RoPE needs positions (3, B, S)")
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(f"lm.loss_fn (training) is {_TRAINING}")
+def forward(model: LM, batch, ctx=None):
+    """Training forward: batch {"tokens": (B, S)} or {"embeds": (B, S, d)},
+    optional "positions" ((B, S), or (3, B, S) for M-RoPE) -> (final
+    hidden states (B, S, d) after the final norm, aux loss (float32)).
+
+    Layers run in groups of one pattern cycle, as the reference's scan
+    body; ``cfg.remat`` "block" checkpoints each group, "nested" (with
+    ``scan_layers``) each segment of gi groups, gi = ``remat_inner`` or
+    sqrt(G) lowered to a divisor of G.  The tail layers past the last
+    whole group run without remat, as in the reference."""
+    if ctx is not None:
+        raise NotImplementedError(_SHARDED)
+    cfg = model.cfg
+    x = model._embed_in(batch.get("tokens"), batch.get("embeds"))
+    B, S = x.shape[:2]
+    positions = _positions(cfg, batch.get("positions"), B, S, x.device)
+    P = len(cfg.block_pattern)
+    G = cfg.num_layers // P
+    blocks = model.blocks
+
+    def run(x, first, last):
+        """Blocks [first, last) -> (x, their aux summed)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in blocks[first:last]:
+            x, a = block(x, positions)
+            aux = aux + a
+        return x, aux
+
+    if cfg.remat == "nested" and cfg.scan_layers and G:
+        gi = cfg.remat_inner or max(int(math.sqrt(G)), 1)
+        while G % gi:
+            gi -= 1
+        span, remat = gi * P, True
+    else:
+        span, remat = P, cfg.remat == "block"
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for first in range(0, G * P, span):
+        if remat:
+            x, a = checkpoint(run, x, first, first + span,
+                              use_reentrant=False)
+        else:
+            x, a = run(x, first, first + span)
+        aux_total = aux_total + a
+    x, a = run(x, G * P, len(blocks))
+    return model.final_norm(x), aux_total + a
+
+
+def loss_fn(model: LM, batch, ctx=None):
+    """Mean next-token cross-entropy plus the aux loss, the reference's
+    chunked form: per ``ce_chunk`` positions, logits in the compute dtype
+    cast to float32, soft-capped, logsumexp minus the label's logit,
+    summed; nll / (B S) + aux.  batch adds "labels" (B, S)."""
+    cfg = model.cfg
+    x, aux = forward(model, batch, ctx)
+    labels = batch["labels"]
+    B, S = labels.shape
+    c = min(cfg.ce_chunk, S)
+    if S % c:
+        raise ValueError(f"sequence {S} is no multiple of ce_chunk {c}")
+    w = model.head_weight()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, c):
+        logits = torch.einsum("bsd,vd->bsv", x[:, c0:c0 + c], w).float()
+        logits = layers.softcap(logits, cfg.logit_softcap)
+        picked = torch.gather(logits, -1,
+                              labels[:, c0:c0 + c, None].long())[..., 0]
+        nll = nll + torch.sum(torch.logsumexp(logits, dim=-1) - picked)
+    return nll / (B * S) + aux

@@ -14,8 +14,9 @@ RG-LRU (diagonal gated linear recurrence):
 All recurrence math in float32.  The reference's prefill runs
 ``jax.lax.associative_scan``; torch has none, so :func:`linear_scan` is a
 log-depth doubling scan over the (a, b) pairs in torch ops (its sums are
-grouped otherwise than XLA's, equal within rounding).  Decode carries
-(h, conv tail) state.
+grouped otherwise than XLA's, equal within rounding).  Training
+(:meth:`RGLRU.forward`) runs the prefill's math without its state;
+decode carries (h, conv tail) state.
 """
 from __future__ import annotations
 
@@ -103,14 +104,23 @@ class RGLRU(nn.Module):
     def _gate(self, x):
         return F.gelu(x.float() @ self.w_gate.float(), approximate="tanh")
 
-    def prefill(self, x):
-        """Full sequence x (B, S, d) -> (out (B, S, d), decode state
-        {"h": (B, d) float32, "conv": the last CONV_W - 1 branch inputs})."""
+    def _full_sequence(self, x):
+        """The full-sequence block (the reference's ``rglru_apply``):
+        (out (B, S, d), h (B, S, d) float32, branch inputs ub)."""
         gate = self._gate(x)
         ub = x @ self.w_branch
         a, gin = self._gates(self._causal_conv(ub))
         h = linear_scan(a, gin)
-        out = (gate * h).to(x.dtype) @ self.w_out
+        return (gate * h).to(x.dtype) @ self.w_out, h, ub
+
+    def forward(self, x):
+        """Training: full sequence x (B, S, d) -> out (B, S, d)."""
+        return self._full_sequence(x)[0]
+
+    def prefill(self, x):
+        """Full sequence x (B, S, d) -> (out (B, S, d), decode state
+        {"h": (B, d) float32, "conv": the last CONV_W - 1 branch inputs})."""
+        out, h, ub = self._full_sequence(x)
         return out, {"h": h[:, -1], "conv": ub[:, -(CONV_W - 1):]}
 
     def decode_step(self, x1, state):

@@ -13,8 +13,9 @@ Token shift is RWKV's ddlerp; per-head GroupNorm and silu(g) gating close
 the block.  The prefill is a sequential scan over time on float32
 (B, H, D, D) state, as in the reference (a chunked formulation is not in
 the reference): :func:`scan` issues one launch a step and forms the
-readouts of SCAN_BLOCK steps at once.  Decode runs the same step
-(:func:`mix_step`).  All state math float32.
+readouts of SCAN_BLOCK steps at once.  Training
+(:meth:`RWKV6.forward`) runs the same scan without emitting the state;
+decode runs the same step (:func:`mix_step`).  All state math float32.
 """
 from __future__ import annotations
 
@@ -56,9 +57,10 @@ def scan(r, k, v, w, u):
     Sequential in time, as the reference's ``lax.scan`` (the step is
     :func:`mix_step`'s arithmetic).  The time axis is walked in blocks of
     SCAN_BLOCK steps: a block's k v^T products are formed at once, each
-    step is one launch writing its state into the block's state stack,
-    and the block's readouts are one batched einsum over the stack, so
-    the host issues one launch a step instead of seven."""
+    step is one launch, and the block's readouts are one batched einsum
+    over its stacked states, so the host makes one launch a step
+    instead of seven.  Every op is differentiable (training runs the
+    same scan)."""
     B, T, H, D = r.shape
     S = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
     ys = []
@@ -67,14 +69,12 @@ def scan(r, k, v, w, u):
         blk = slice(t0, t0 + n)
         kv = (k[:, blk, :, :, None] * v[:, blk, :, None, :]).transpose(0, 1)
         wb = w[:, blk, :, :, None].transpose(0, 1)
-        states = torch.empty((n + 1, B, H, D, D), dtype=torch.float32,
-                             device=r.device)
-        states[0] = S
+        states = [S]
         for i in range(n):
-            torch.addcmul(kv[i], wb[i], states[i], out=states[i + 1])
-        ys.append(_readout(r[:, blk].transpose(0, 1), states[:n], kv,
-                           u).transpose(0, 1))
-        S = states[n].clone()       # not a view that holds the block
+            states.append(torch.addcmul(kv[i], wb[i], states[i]))
+        ys.append(_readout(r[:, blk].transpose(0, 1),
+                           torch.stack(states[:n]), kv, u).transpose(0, 1))
+        S = states[n]
     return torch.cat(ys, dim=1), S
 
 
@@ -141,15 +141,24 @@ class RWKV6(nn.Module):
         var = torch.var(y, dim=-1, keepdim=True, unbiased=False)
         return (y - mu) * torch.rsqrt(var + 1e-5) * (1.0 + self.ln_scale)
 
-    def prefill(self, x):
-        """Full sequence x (B, T, d) -> (out (B, T, d), decode state
-        {"S": the last step's (B, H, D, D) float32, "x_prev": x[:, -1]})."""
+    def _full_sequence(self, x):
+        """The full-sequence time mix (the reference's ``rwkv6_apply``):
+        (out (B, T, d), the last state (B, H, D, D) float32)."""
         B, T, d = x.shape
         x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
         r, k, v, g, w = self._streams(self._ddlerp(x, x_prev), x.dtype)
         y, S = scan(r, k, v, w, self.u)
         y = self._head_norm(y) * g
-        out = y.reshape(B, T, d).to(x.dtype) @ self.w_o
+        return y.reshape(B, T, d).to(x.dtype) @ self.w_o, S
+
+    def forward(self, x):
+        """Training: full sequence x (B, T, d) -> out (B, T, d)."""
+        return self._full_sequence(x)[0]
+
+    def prefill(self, x):
+        """Full sequence x (B, T, d) -> (out (B, T, d), decode state
+        {"S": the last step's (B, H, D, D) float32, "x_prev": x[:, -1]})."""
+        out, S = self._full_sequence(x)
         return out, {"S": S, "x_prev": x[:, -1]}
 
     def decode_step(self, x1, state):

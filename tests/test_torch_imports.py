@@ -29,6 +29,9 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.so3, repro_torch.so3.service\n"
         "import repro_torch.launch.serve_so3, repro_torch.configs.soft\n"
         "import repro_torch.core.parallel, repro_torch.launch.profile_so3\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
+        "import repro_torch.train, repro_torch.train.pipeline\n"
+        "import repro_torch.launch.train, repro_torch.models.convert\n"
         "assert callable(repro_torch.plan.warm_bandwidths)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -239,15 +239,19 @@ def test_sampling_takes_first_maximum():
 
 
 def test_unported_paths_raise():
-    """What is still to port raises, naming its ROADMAP.md item: training
-    (forward, loss_fn: item 11b) and the sharded MoE path (item 11c); a
-    model built with no device asks for the card."""
+    """What is still to port raises, naming its ROADMAP.md item: the
+    sharded paths (training with ctx, the sharded MoE path: item 11c;
+    training itself is item 11b, ported); a model built with no device
+    asks for the card."""
     from repro_torch.models import moe as tmoe
     cfg = tconfigs.reduced(ARCH)
+    model = tlm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.ones((1, 4), dtype=torch.long),
+             "labels": torch.ones((1, 4), dtype=torch.long)}
     for fn in (tlm.forward, tlm.loss_fn):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                           "item 11b"):
-            fn()
+                           "item 11c"):
+            fn(model, batch, ctx=object())
     mcfg = tconfigs.reduced("olmoe-1b-7b")
     layer = tmoe.MoE(mcfg, torch.float32, torch.Generator().manual_seed(0))
     x = torch.zeros((1, 4, mcfg.d_model))
