@@ -171,7 +171,19 @@ Phases (any failure exits non-zero):
      error-feedback faults (residual not fed back, never stored); 12c. a planted RuntimeError
      (one restart, every step once), a planted KeyboardInterrupt replay
      (losses within rel 1e-5 of an uninterrupted run) and the card's
-     checkpoint restored on the CPU.
+     checkpoint restored on the CPU;
+ 13. (every plan freed first) the sharded LM path on a one-rank NCCL
+     (1, 1) ("data", "model") mesh (repro_torch.launch.mesh.local_ctx):
+     13a. olmoe-1b-7b at its published width and depth (bf16, random
+     weights, torch.Generator seed 0): prefill of batch 2 x prompt 2048
+     and 16 decode steps with ctx, every logit and state torch.equal to
+     the ctx=None path's, one attention launch per layer of the sharded
+     prefill, two all-to-alls per MoE layer per call and no all-gather
+     (counts zeroed just before each call and read just after), ms per
+     prefill and decode step of both paths, peak memory; 13b. two
+     make_train_step(..., ctx) AdamW steps of olmoe-1b-7b at full width
+     cut to 2 layers, batch 2 x 512, against the ctx=None steps from the
+     same seeds: loss, grad norm and every parameter torch.equal.
 The line before the last is one JSON object {"kernels": [...]} (eleven
 kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
 the output directory OUT.
@@ -182,6 +194,7 @@ import argparse
 import functools
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -3720,6 +3733,242 @@ def train_fault_tolerance() -> dict:
     torch.cuda.empty_cache()
     return out
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded LM path at one NCCL rank
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "olmoe-1b-7b"
+SHARD_BATCH, SHARD_PROMPT, SHARD_DECODE = 2, 2048, 16
+# 13b: full width, depth cut from 16 to 2 layers (bf16 weights 2.1 GB,
+# AdamW's float32 mu / nu / master about 10 GB), batch 2 x 512, 2 steps
+SHARD_TRAIN_LAYERS, SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 2, 2, 512
+SHARD_TRAIN_STEPS = 2
+
+
+def _collective_calls() -> dict:
+    from repro_torch.models import sharding
+    return {op: c["count"] for op, c in sharding.COLLECTIVES.items()}
+
+
+def _reset_counts():
+    from repro_torch.models import sharding
+    reset_all_launches()
+    sharding.reset_collectives()
+
+
+def sharded_serve(ctx) -> dict:
+    """Phase 13a: olmoe-1b-7b at its published width and depth (bf16,
+    torch.Generator seed 0) on the one-rank (1, 1) mesh: prefill of
+    SHARD_BATCH x SHARD_PROMPT and SHARD_DECODE teacher-forced decode
+    steps with ctx and without.  Every logit and state equal bit for bit
+    (at one rank every collective is a copy or a one-term sum and the
+    capacity is the local one); one attention launch per layer of the
+    sharded prefill, two all-to-alls per MoE layer per call, no
+    all-gather (no sequence parallelism at n_model = 1); the counts
+    zeroed just before each call and read just after."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import attention, lm
+
+    cfg = configs.get(SHARD_ARCH)
+    B, S, n = SHARD_BATCH, SHARD_PROMPT, SHARD_DECODE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = lm.init(cfg, gen, ctx=ctx)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S + n), generator=gen,
+                           device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_kernel = sum(isinstance(b.mixer, attention.Attention)
+                   and b.mixer.uses_kernel for b in model.blocks)
+    n_moe = sum(hasattr(b, "moe") for b in model.blocks)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {SHARD_ARCH}: {cfg.num_layers} layers, {n_moe} MoE, "
+        f"{weights} bytes of {cfg.param_dtype}, built in {build_s:.2f} s; "
+        f"mesh {ctx.shape} {ctx.axis_names}")
+    prompt, max_len = tokens[:, :S], S + n
+
+    def serve(c, counts=None):
+        if counts is not None:
+            _reset_counts()
+        logits, states = model.prefill(prompt, max_len, ctx=c)
+        torch.cuda.synchronize()
+        if counts is not None:
+            counts["prefill"] = {"launches": all_launches(),
+                                 "collectives": _collective_calls()}
+        pre = (logits, [{k: v.clone() for k, v in st.items()}
+                        for st in states])
+        if counts is not None:
+            _reset_counts()
+        outs = []
+        for i in range(n):
+            logits, states = model.decode_step(
+                tokens[:, S + i:S + i + 1], states, S + i, ctx=c)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        if counts is not None:
+            counts["decode"] = {"launches": all_launches(),
+                                "collectives": _collective_calls()}
+        return pre, outs, states
+
+    plain = serve(None)
+    counts = {}
+    sharded = serve(ctx, counts)
+    pre_launch = counts["prefill"]["launches"]
+    attn = pre_launch.get("folded_causal_attention", 0)
+    others = {k: v for k, v in pre_launch.items()
+              if v and k != "folded_causal_attention"}
+    coll_pre = counts["prefill"]["collectives"]
+    coll_dec = counts["decode"]["collectives"]
+    log(f"    sharded prefill: attention launches {attn} (want {n_kernel}),"
+        f" collectives {coll_pre}; {n} decode steps: {coll_dec}")
+    if attn != n_kernel or others:
+        fail(f"13a: {attn} attention launches (and {others}) in one sharded "
+             f"prefill of {n_kernel} plain causal layers")
+    if coll_pre.get("all-to-all", 0) != 2 * n_moe or \
+            coll_dec.get("all-to-all", 0) != 2 * n_moe * n:
+        fail(f"13a: all-to-alls {coll_pre} / {coll_dec}, want 2 per MoE "
+             f"layer per call ({n_moe} layers)")
+    if coll_pre.get("all-gather", 0) or coll_dec.get("all-gather", 0):
+        fail("13a: an all-gather at n_model = 1 (no sequence parallelism)")
+    (pl, pst), pouts, pfin = plain
+    (sl, sst), souts, sfin = sharded
+    equal = {"prefill_logits": torch.equal(pl, sl),
+             "prefill_states": all(torch.equal(a[k], b[k]) for a, b in
+                                   zip(pst, sst) for k in a),
+             "decode_logits": all(torch.equal(a, b)
+                                  for a, b in zip(pouts, souts)),
+             "decode_states": all(torch.equal(a[k], b[k]) for a, b in
+                                  zip(pfin, sfin) for k in a)}
+    finite = bool(torch.isfinite(sl).all()) and all(
+        bool(torch.isfinite(o).all()) for o in souts)
+    log(f"    ctx vs ctx=None, bit for bit: {equal}; finite {finite}")
+    if not all(equal.values()) or not finite:
+        fail(f"13a: the sharded path differs from the unsharded one "
+             f"({equal}, finite {finite})")
+    del plain, sharded, pl, pst, pouts, pfin, sl, sst, souts, sfin
+
+    res = {"arch": SHARD_ARCH, "layers": cfg.num_layers, "batch": B,
+           "prompt": S, "decode_steps": n, "weight_bytes": weights,
+           "build_s": build_s, "launches_per_prefill": attn,
+           "collectives_prefill": coll_pre, "collectives_decode": coll_dec,
+           "bitwise_equal": equal}
+    for tag, c in (("plain", None), ("sharded", ctx)):
+        res[f"prefill_ms_{tag}"] = cuda_ms(
+            lambda c=c: model.prefill(prompt, max_len, ctx=c), 2)
+        _, states = model.prefill(prompt, max_len, ctx=c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            _, states = model.decode_step(tokens[:, S + i:S + i + 1], states,
+                                          S + i, ctx=c)
+        torch.cuda.synchronize()
+        res[f"decode_ms_per_step_{tag}"] = (time.perf_counter() - t0) \
+            * 1e3 / n
+        del states
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"    prefill {res['prefill_ms_sharded']:.1f} ms sharded / "
+        f"{res['prefill_ms_plain']:.1f} ms unsharded (CUDA events); decode "
+        f"{res['decode_ms_per_step_sharded']:.2f} / "
+        f"{res['decode_ms_per_step_plain']:.2f} ms/step (host clock, "
+        f"synchronized); peak device memory {res['peak_bytes']} bytes")
+    del model, tokens, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_train(ctx) -> dict:
+    """Phase 13b: SHARD_TRAIN_STEPS make_train_step(..., ctx) AdamW steps
+    of olmoe-1b-7b at full width, depth cut to SHARD_TRAIN_LAYERS (bf16),
+    batch SHARD_TRAIN_BATCH x SHARD_TRAIN_SEQ, against the same steps
+    without ctx from the same seeds: every loss, grad norm and parameter
+    equal bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import convert, lm
+    from repro_torch.optim import OptConfig, init_opt
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(configs.get(SHARD_ARCH),
+                              num_layers=SHARD_TRAIN_LAYERS)
+    log(f"  {SHARD_ARCH}: depth cut from {configs.get(SHARD_ARCH).num_layers}"
+        f" to {SHARD_TRAIN_LAYERS} layers (full width)")
+    tcfg = TrainConfig(opt=OptConfig(name="adamw", peak_lr=1e-3,
+                                     warmup_steps=1, decay_steps=10))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    shape = (SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ)
+    batches = [{"tokens": torch.randint(1, cfg.vocab_size, shape,
+                                        generator=gen, device=DEV),
+                "labels": torch.randint(1, cfg.vocab_size, shape,
+                                        generator=gen, device=DEV)}
+               for _ in range(SHARD_TRAIN_STEPS)]
+
+    def run(c):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device=DEV).manual_seed(0)
+        model = lm.init(cfg, g, ctx=c).trainable()
+        st = init_opt(tcfg.opt, convert.stacks(model))
+        step = make_train_step(cfg, tcfg, c)
+        metrics, times = [], []
+        _reset_counts()
+        for s, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, st, _, m = step(model, st, None, batch, s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: torch.as_tensor(v).clone()
+                            for k, v in m.items()})
+        params = {k: v.clone() for k, v in convert.stacks(model).items()}
+        out = {"metrics": metrics, "params": params, "step_ms": times,
+               "collectives": _collective_calls(),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        del model, st, step
+        return out
+
+    plain = run(None)
+    sharded = run(ctx)
+    equal = {
+        "loss": all(torch.equal(a["loss"], b["loss"]) for a, b in
+                    zip(plain["metrics"], sharded["metrics"])),
+        "grad_norm": all(torch.equal(a["grad_norm"], b["grad_norm"])
+                         for a, b in zip(plain["metrics"],
+                                         sharded["metrics"])),
+        "params": all(torch.equal(v, sharded["params"][k])
+                      for k, v in plain["params"].items())}
+    losses = [float(m["loss"]) for m in sharded["metrics"]]
+    log(f"    losses {losses}, grad norms "
+        f"{[float(m['grad_norm']) for m in sharded['metrics']]}; ms per step"
+        f" sharded {sharded['step_ms']} / unsharded {plain['step_ms']} "
+        f"(host clock, synchronized); collectives {sharded['collectives']};"
+        f" peak {sharded['peak_bytes']} bytes")
+    log(f"    ctx vs ctx=None, bit for bit: {equal}")
+    if not all(equal.values()) or not all(math.isfinite(x) for x in losses):
+        fail(f"13b: the sharded steps differ from the unsharded ones "
+             f"({equal}, losses {losses})")
+    res = {"arch": SHARD_ARCH, "layers": SHARD_TRAIN_LAYERS,
+           "published_layers": configs.get(SHARD_ARCH).num_layers,
+           "batch": SHARD_TRAIN_BATCH, "seq": SHARD_TRAIN_SEQ,
+           "losses": losses, "bitwise_equal": equal,
+           "step_ms_sharded": sharded["step_ms"],
+           "step_ms_plain": plain["step_ms"],
+           "collectives": sharded["collectives"],
+           "peak_bytes_sharded": sharded["peak_bytes"],
+           "peak_bytes_plain": plain["peak_bytes"]}
+    del plain, sharded, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3972,6 +4221,19 @@ def main() -> int:
     log("  12c. fault tolerance on the card")
     train_ft = train_fault_tolerance()
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
+    free_plans()
+
+    from repro_torch.launch.mesh import local_ctx
+    t13 = time.perf_counter()
+    with local_ctx(torch.device(DEV, 0)) as ctx:
+        log(f"== 13a. sharded serving: {SHARD_ARCH} on a one-rank NCCL "
+            f"mesh {ctx.shape}, prefill {SHARD_BATCH} x {SHARD_PROMPT}, "
+            f"{SHARD_DECODE} decode steps, ctx against ctx=None")
+        shard_serve = sharded_serve(ctx)
+        log(f"== 13b. sharded training: {SHARD_TRAIN_STEPS} "
+            f"make_train_step(..., ctx) steps against ctx=None")
+        shard_train = sharded_train(ctx)
+    log(f"  phase 13: {time.perf_counter() - t13:.1f} s")
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
                    **{k: scounts[k] for k in ("build_windows",
@@ -3991,6 +4253,8 @@ def main() -> int:
             kernels.append(attention_record(name, meta, attn, serve,
                                             archs))
             kernels[-1]["launches_train"] = train["launches"].get(name, 0)
+            kernels[-1]["launches_sharded_prefill"] = \
+                shard_serve["launches_per_prefill"]
             continue
         main_rec = {**recs, **srecs, **trecs, **orecs}[name]
         extra = {"f32_B64": {**recs32, **srecs32, **trecs32, **orecs32}[name]}
@@ -4077,6 +4341,7 @@ def main() -> int:
                "measured_tuning": tuned,
                "train_path": train, "train_parity": train_par,
                "train_fault_tolerance": train_ft, "train_tol": TRAIN_TOL,
+               "sharded_serve": shard_serve, "sharded_train": shard_train,
                "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke_summary.json").write_text(json.dumps(

@@ -76,7 +76,8 @@ __all__ = [
     "dense_to_packed", "packed_to_dense_batch", "dense_to_packed_batch",
     "OVERLAP_MODES", "check_overlap_mode", "pipeline_steps",
     "pipeline_slots", "mesh_axes", "mesh_shards", "shard_group",
-    "broadcast_object", "local_mesh", "ALL_TO_ALLS", "reset_all_to_alls",
+    "broadcast_object", "local_mesh", "start_local_group", "ALL_TO_ALLS",
+    "reset_all_to_alls",
 ]
 
 # batch-executor execution modes: "off" launches the V-chunks serially,
@@ -182,6 +183,24 @@ def shard_group(mesh, axis):
     return mesh[tuple(axis)]._flatten().get_group()
 
 
+def start_local_group(device: torch.device) -> bool:
+    """Select ``device`` and, when no process group is up, start a
+    one-rank one (NCCL on a card, gloo on the CPU) at
+    ``tcp://localhost`` on a free port.  Returns whether it started one
+    (the caller destroys it)."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return False
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    return True
+
+
 @contextlib.contextmanager
 def local_mesh(n_shards: int, device: torch.device, axis: str = "data"):
     """A one-dim DeviceMesh ``(axis,)`` of ``n_shards`` ranks on
@@ -192,21 +211,12 @@ def local_mesh(n_shards: int, device: torch.device, axis: str = "data"):
     RuntimeError for any other count.  On exit the plans cached on the
     mesh are evicted (:func:`repro_torch.plan.evict_mesh`)."""
     from torch.distributed.device_mesh import init_device_mesh
-    started = not dist.is_initialized()
-    if started and n_shards != 1:
+    if not dist.is_initialized() and n_shards != 1:
         raise RuntimeError(
             f"a mesh of {n_shards} shards needs a process group of "
             f"{n_shards} ranks; a single process starts only a one-rank "
             f"group")
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    if started:
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
-            init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    started = start_local_group(device)
     mesh = None
     try:
         if dist.get_world_size() != n_shards:
@@ -409,20 +419,30 @@ class DistExecutor:
     def __init__(self, plan: SoftPlan, mesh, axis=("data", "model"), *,
                  lane_width: int = 1, local_dwt=None, local_idwt=None,
                  overlap: str = "off"):
-        self.plan = plan
         self.mesh = mesh
         self.axis = mesh_axes(axis)
-        self.n_shards = mesh_shards(mesh, self.axis)
-        check_mesh_compat(plan, self.n_shards)
-        if lane_width < 1:
-            raise ValueError(f"lane_width must be >= 1, got {lane_width}")
+        n_shards = mesh_shards(mesh, self.axis)
         if mesh.device_type != plan.device.type:
             raise ValueError(f"the mesh is on {mesh.device_type!r} devices, "
                              f"the plan on {plan.device}")
+        group = shard_group(mesh, self.axis)
+        self._bind(plan, n_shards, group, dist.get_rank(group), lane_width,
+                   local_dwt, local_idwt, overlap)
+
+    def _bind(self, plan, n_shards, group, rank, lane_width, local_dwt,
+              local_idwt, overlap):
+        """Rank ``rank`` of ``n_shards``' tables and closures, built once
+        (split from the constructor so that the dry run can trace one
+        rank's program with no process group)."""
+        self.plan = plan
+        self.n_shards = n_shards
+        check_mesh_compat(plan, n_shards)
+        if lane_width < 1:
+            raise ValueError(f"lane_width must be >= 1, got {lane_width}")
         self.lane_width = int(lane_width)
         self.overlap = check_overlap_mode(overlap)
-        self.group = shard_group(mesh, self.axis)
-        self.rank = dist.get_rank(self.group)
+        self.group = group
+        self.rank = rank
         self._ld = _normalize_local_dwt(plan, local_dwt, "klj,kjc->klc")
         self._lid = _normalize_local_dwt(plan, local_idwt, "klj,klc->kjc")
         n, s = self.n_shards, self.rank

@@ -1,3 +1,5 @@
 """Entry points of the port: ``python -m repro_torch.launch.serve``,
-``python -m repro_torch.launch.serve_so3`` and
-``python -m repro_torch.launch.train``."""
+``python -m repro_torch.launch.serve_so3``,
+``python -m repro_torch.launch.train`` and
+``python -m repro_torch.launch.dryrun`` (with ``mesh``, ``specs`` and
+``flops``, the production-mesh tooling)."""

@@ -21,8 +21,18 @@ Training runs the plain attention (``chunked_causal``) in every layer,
 as the reference does; ``cfg.remat`` "block" recomputes each pattern
 group in the backward (``torch.utils.checkpoint``), "nested" each
 segment of about sqrt(G) groups.  Parameters are created without a
-gradient; :meth:`LM.trainable` switches them on.  The sharded path
-(``ctx``) is not ported (ROADMAP.md queue 1 item 11c) and raises.
+gradient; :meth:`LM.trainable` switches them on.
+
+The sharded path (``ctx``, a :class:`~repro_torch.models.sharding.ShardCtx`)
+runs each rank's share of the reference's SPMD program: the batch enters
+data-sharded (the rank's B / n_data rows, or every row when the data axes
+do not divide B, as the reference's ``specs._dp_or_none`` decides), every
+MoE layer runs its expert- and sequence-parallel path over the model
+group on the rank's E / n_model experts (:meth:`LM.shard_experts`), and
+:func:`loss_fn` returns the global loss.  The non-expert parameters stay
+replicated (the reference's FSDP / TP placements are not applied at run
+time, ROADMAP.md queue 1 item 11e).  Serving with ``ctx`` runs the
+attention kernel exactly as without.
 """
 from __future__ import annotations
 
@@ -34,14 +44,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.batched import resolve_device
 
-from . import attention, layers, moe, rglru, rwkv6
+from . import attention, layers, moe, rglru, rwkv6, sharding
 
 __all__ = ["MIXERS", "Block", "LM", "init", "count_params",
            "count_active_params", "state_init", "forward", "loss_fn"]
 
 MIXERS = ("attn", "local_attn", "rglru", "rwkv6")
-_SHARDED = ("the sharded training path (ctx=) is not ported yet "
-            "(ROADMAP.md queue 1 item 11c)")
 
 
 class Block(nn.Module):
@@ -70,11 +78,13 @@ class Block(nn.Module):
             self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_type, dtype,
                                   generator, device)
 
-    def _ffn(self, x):
+    def _ffn(self, x, ctx=None):
         h = self.norm2(x)
-        return x + (self.moe(h)[0] if hasattr(self, "moe") else self.mlp(h))
+        if hasattr(self, "moe"):
+            return x + self.moe(h, ctx)[0]
+        return x + self.mlp(h)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, ctx=None):
         """Training: one block over the full sequence.  Returns (x, aux),
         aux the MoE's load-balance loss (0.0 without MoE)."""
         h = self.norm1(x)
@@ -84,12 +94,13 @@ class Block(nn.Module):
             x = x + self.mixer(h)
         h = self.norm2(x)
         if hasattr(self, "moe"):
-            f, aux = self.moe(h)
+            f, aux = self.moe(h, ctx)
         else:
             f, aux = self.mlp(h), 0.0
         return x + f, aux
 
-    def prefill(self, x, positions, max_len, cache_dtype, attn_fn=None):
+    def prefill(self, x, positions, max_len, cache_dtype, attn_fn=None,
+                ctx=None):
         """One block over the full sequence, also emitting its decode
         state.  ``attn_fn`` reaches a plain causal attention layer's kernel
         call only."""
@@ -99,9 +110,9 @@ class Block(nn.Module):
                                          attn_fn)
         else:
             mix, st = self.mixer.prefill(h)
-        return self._ffn(x + mix), st
+        return self._ffn(x + mix, ctx), st
 
-    def decode_step(self, x, state, pos: int):
+    def decode_step(self, x, state, pos: int, ctx=None):
         """One block over a single token, advancing its state (a KV cache
         in place)."""
         h = self.norm1(x)
@@ -109,7 +120,7 @@ class Block(nn.Module):
             mix, st = self.mixer.decode_step(h, state, pos)
         else:
             mix, st = self.mixer.decode_step(h, state)
-        return self._ffn(x + mix), st
+        return self._ffn(x + mix, ctx), st
 
 
 class LM(nn.Module):
@@ -138,6 +149,16 @@ class LM(nn.Module):
     def head_weight(self):
         return self.head if hasattr(self, "head") else self.embed
 
+    def shard_experts(self, ctx) -> "LM":
+        """Keep only the model rank's E / n_model experts in every MoE
+        layer (:meth:`~repro_torch.models.moe.MoE.shard_`); returns the
+        model.  A no-op at n_model = 1."""
+        if ctx is not None and ctx.n_model > 1:
+            for block in self.blocks:
+                if hasattr(block, "moe"):
+                    block.moe.shard_(ctx)
+        return self
+
     def trainable(self, flag: bool = True) -> "LM":
         """Set ``requires_grad`` on every parameter (created without a
         gradient for serving); returns the model."""
@@ -161,42 +182,49 @@ class LM(nn.Module):
                                  device=x.device)
         return x
 
-    def logits_fn(self, x):
-        """Hidden (B, S, d) -> logits (B, S, vocab), float32."""
+    def logits_fn(self, x, ctx=None):
+        """Hidden (B, S, d) -> logits (B, S, vocab), float32.  ``ctx``:
+        the reference's vocab-over-model layout hint, the identity here
+        (:func:`~repro_torch.models.sharding.constrain`)."""
         out = torch.einsum("bsd,vd->bsv", x, self.head_weight()).float()
-        return layers.softcap(out, self.cfg.logit_softcap)
+        out = layers.softcap(out, self.cfg.logit_softcap)
+        return sharding.constrain(out, ctx)
 
     @torch.no_grad()
     def prefill(self, tokens, max_len, *, embeds=None, positions=None,
-                attn_fn=None):
+                attn_fn=None, ctx=None):
         """Full-prompt prefill.  tokens: (B, S) integer, or None with
         ``embeds`` (B, S, d) for an ``embed_inputs`` config; positions:
         (B, S), or (3, B, S) for M-RoPE (default arange(S) per row).
         Returns (last-position logits (B, vocab) float32, per-layer decode
         states of max_len).  ``attn_fn`` replaces the attention kernel
         call of every plain causal layer (default:
-        :func:`repro_torch.kernels.ops.attention`)."""
+        :func:`repro_torch.kernels.ops.attention`).  With ``ctx`` the
+        rows are this rank's and the MoE layers run sharded."""
         x = self._embed_in(tokens, embeds)
         B, S = x.shape[:2]
         positions = _positions(self.cfg, positions, B, S, x.device)
         states = []
         for block in self.blocks:
-            x, st = block.prefill(x, positions, max_len, self.dtype, attn_fn)
+            x, st = block.prefill(x, positions, max_len, self.dtype, attn_fn,
+                                  ctx)
             states.append(st)
         x = self.final_norm(x[:, -1:])
-        return self.logits_fn(x)[:, -1], states
+        return self.logits_fn(x, ctx)[:, -1], states
 
     @torch.no_grad()
-    def decode_step(self, tokens, states, pos: int, *, embeds=None):
+    def decode_step(self, tokens, states, pos: int, *, embeds=None,
+                    ctx=None):
         """One-token decode.  tokens: (B, 1), or None with ``embeds``
         (B, 1, d); states: from :meth:`prefill` or :func:`state_init`,
         advanced (KV caches in place); pos: the token's position.  Returns
-        (logits (B, vocab) float32, states)."""
+        (logits (B, vocab) float32, states).  ``ctx`` as in
+        :meth:`prefill`."""
         x = self._embed_in(tokens, embeds)
         for i, block in enumerate(self.blocks):
-            x, states[i] = block.decode_step(x, states[i], pos)
+            x, states[i] = block.decode_step(x, states[i], pos, ctx)
         x = self.final_norm(x)
-        return self.logits_fn(x)[:, -1], states
+        return self.logits_fn(x, ctx)[:, -1], states
 
 
 def _embedding(generator, cfg, dtype, device):
@@ -209,10 +237,13 @@ def _embedding(generator, cfg, dtype, device):
     return layers.param(w)
 
 
-def init(cfg, generator, device=None) -> LM:
+def init(cfg, generator, device=None, ctx=None) -> LM:
     """The model with random weights drawn from ``generator``, which must
-    live on ``device`` (None: the card; a CPU run passes "cpu")."""
-    return LM(cfg, generator, resolve_device(device)).eval()
+    live on ``device`` (None: the card; a CPU run passes "cpu").  With
+    ``ctx`` it keeps only the model rank's experts (the same draws as the
+    whole model's)."""
+    return LM(cfg, generator, resolve_device(device)).shard_experts(
+        ctx).eval()
 
 
 def count_params(cfg) -> int:
@@ -274,9 +305,9 @@ def forward(model: LM, batch, ctx=None):
     body; ``cfg.remat`` "block" checkpoints each group, "nested" (with
     ``scan_layers``) each segment of gi groups, gi = ``remat_inner`` or
     sqrt(G) lowered to a divisor of G.  The tail layers past the last
-    whole group run without remat, as in the reference."""
-    if ctx is not None:
-        raise NotImplementedError(_SHARDED)
+    whole group run without remat, as in the reference.  With ``ctx`` the
+    batch is this rank's rows, the MoE layers run sharded and aux is the
+    global one."""
     cfg = model.cfg
     x = model._embed_in(batch.get("tokens"), batch.get("embeds"))
     B, S = x.shape[:2]
@@ -289,7 +320,7 @@ def forward(model: LM, batch, ctx=None):
         """Blocks [first, last) -> (x, their aux summed)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in blocks[first:last]:
-            x, a = block(x, positions)
+            x, a = block(x, positions, ctx)
             aux = aux + a
         return x, aux
 
@@ -316,7 +347,13 @@ def loss_fn(model: LM, batch, ctx=None):
     """Mean next-token cross-entropy plus the aux loss, the reference's
     chunked form: per ``ce_chunk`` positions, logits in the compute dtype
     cast to float32, soft-capped, logsumexp minus the label's logit,
-    summed; nll / (B S) + aux.  batch adds "labels" (B, S)."""
+    summed; nll / (B S) + aux.  batch adds "labels" (B, S).
+
+    With ``ctx`` the batch is this rank's B / n_data rows: the nll sum is
+    all-reduced over the data group and divided by the global B S, so
+    every rank returns the global loss; each rank's gradient is its rows'
+    share, summed by the trainer (:func:`repro_torch.train.trainer
+    .reduce_grads`)."""
     cfg = model.cfg
     x, aux = forward(model, batch, ctx)
     labels = batch["labels"]
@@ -332,4 +369,7 @@ def loss_fn(model: LM, batch, ctx=None):
         picked = torch.gather(logits, -1,
                               labels[:, c0:c0 + c, None].long())[..., 0]
         nll = nll + torch.sum(torch.logsumexp(logits, dim=-1) - picked)
+    if ctx is not None:
+        nll = sharding.all_reduce(nll, ctx, "data")
+        B = B * ctx.n_data
     return nll / (B * S) + aux

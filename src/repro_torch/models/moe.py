@@ -1,17 +1,45 @@
 """Mixture-of-Experts FFN (GShard/Switch-style top-k routing with capacity)
--- the single-device path of ``repro/models/moe.py`` (``_route``,
-``_dispatch_indices``, ``_dispatch_combine``, ``_moe_local``).
+-- the port of ``repro/models/moe.py``: the single-device path
+(``_route``, ``_dispatch_indices``, ``_dispatch_combine``,
+``_moe_local``) and the expert- and sequence-parallel path
+(``_moe_sharded``).
 
 Capacity C = max(ceil(T * top_k / E * capacity_factor), 1), computed in
 Python floats as the reference does; an entry's position in its expert is
 the exclusive cumsum over the flattened (token, slot) order, and entries
-at positions >= C are dropped (masked: torch has no scatter that drops
-out-of-range indices).  Router math is float32; the Switch load-balance
-aux loss is returned alongside.
+at positions >= C are dropped (written to a spare row past the (E, C)
+buffer: torch has no scatter that drops out-of-range indices, and a
+boolean mask has no meta-tensor shape).  Router math is float32; the
+Switch load-balance aux loss is returned alongside.
 
-Not ported (ROADMAP.md queue 1 item 11c): the sharded expert-parallel /
-sequence-parallel path (the reference's ``_moe_sharded`` under
-``shard_map``); :meth:`MoE.forward` with ``ctx`` raises.
+The sharded path (``ctx`` given; the model rank holds E / n_model
+experts, :meth:`MoE.shard_`) runs per rank what the reference's
+``shard_map`` body runs:
+
+  1. sequence parallelism when S % n_model == 0 and S >= n_model > 1: the
+     model rank takes its S / n_model slice of the (data-sharded) tokens;
+  2. local routing and dispatch into (E, C_loc, d), C_loc the capacity of
+     the rank's own tokens;
+  3. an all-to-all over the model group: the (E, C, d) buffer's dim 0 is
+     already chunked by destination rank, and the received (n, E/n, C, d)
+     is permuted to (E/n, n C, d), source-rank order on the capacity
+     axis -- the reference's tiled ``all_to_all(split_axis=0,
+     concat_axis=1)``;
+  4. the FFN of the rank's E / n experts;
+  5. the reverse permutation and all-to-all, the local combine, the shared
+     experts on the slice;
+  6. the slices all-gathered over the model group;
+  7. aux averaged over every rank (the reference's ``pmean`` over the data
+     and model axes).
+
+Gradients: the input enters through :func:`sharding.enter_model` (its
+cotangent is summed over the model group); without sequence parallelism
+every model rank routes every token, so the output's cotangent is
+divided by n_model (:func:`sharding.scale_grad`), as the reference's
+``shard_map`` transpose divides the cotangent of an output replicated
+over an axis.  The router's and the shared experts' gradients are then
+partial sums over the model ranks, which the trainer adds up
+(:func:`repro_torch.train.trainer.reduce_grads`).
 """
 from __future__ import annotations
 
@@ -22,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import layers
+from . import layers, sharding
 
 __all__ = ["MoE", "moe_apply", "route", "dispatch_indices",
            "dispatch_combine", "capacity", "expert_ffn"]
@@ -69,19 +97,26 @@ def expert_ffn(wi, wo, xe, kind):
     return torch.bmm(h, wo)
 
 
-def dispatch_combine(router, wi, wo, xt, m, kind):
+def dispatch_combine(router, wi, wo, xt, m, kind, cross_expert_fn=None):
     """Dispatch -> expert FFN -> combine on tokens xt (T, d).  Returns
-    (out (T, d), aux loss)."""
+    (out (T, d), aux loss).  ``cross_expert_fn`` replaces the FFN on the
+    (E, C, d) buffer (the sharded path's all-to-all sandwich)."""
     T, d = xt.shape
     E, k = m.num_experts, m.top_k
     C = capacity(T, m)
     gate_vals, expert_ids, probs = route(router, xt, m)
     eid, cid, keep = dispatch_indices(expert_ids, E, C)
 
+    # a dropped entry lands on the spare row E C, past the buffer
     src = xt.repeat_interleave(k, dim=0)
-    buf = torch.zeros((E, C, d), dtype=xt.dtype, device=xt.device)
-    buf[eid[keep], cid[keep]] = src[keep]
-    out_e = expert_ffn(wi, wo, buf, kind)
+    rows = torch.where(keep, eid * C + cid, E * C)
+    flat = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
+    flat = flat.index_put((rows,), src)
+    buf = flat[:E * C].view(E, C, d)
+    if cross_expert_fn is None:
+        out_e = expert_ffn(wi, wo, buf, kind)
+    else:
+        out_e = cross_expert_fn(buf)
 
     tok_out = out_e[eid, torch.clamp(cid, max=C - 1)]
     tok_out = torch.where(keep[:, None], tok_out, 0.0)
@@ -124,13 +159,29 @@ class MoE(nn.Module):
             return torch.empty(shape, dtype=dtype, device=device)
         return layers.normal(generator, shape, scale, dtype, device)
 
+    @torch.no_grad()
+    def shard_(self, ctx) -> "MoE":
+        """Keep only the model rank's E / n_model experts (rows [r E/n,
+        (r + 1) E/n) of wi and wo): expert parallelism's placement.
+        Returns the module."""
+        E, n = self.cfg.moe.num_experts, ctx.n_model
+        if E % n:
+            raise ValueError(f"experts {E} % model axis {n}")
+        if self.wi.shape[0] != E:
+            raise ValueError(f"holds {self.wi.shape[0]} experts, not all {E}")
+        r, el = ctx.model_rank, E // n
+        for name in ("wi", "wo"):
+            w = getattr(self, name)
+            part = w[r * el:(r + 1) * el].clone()
+            setattr(self, name, nn.Parameter(part,
+                                             requires_grad=w.requires_grad))
+        return self
+
     def forward(self, x, ctx=None):
-        """x (B, S, d) -> (out (B, S, d), aux loss)."""
+        """x (B, S, d) -> (out (B, S, d), aux loss).  With ``ctx`` the
+        sharded path: x is this rank's rows, the output too."""
         if ctx is not None:
-            raise NotImplementedError(
-                "the sharded MoE path (expert and sequence parallel, the "
-                "reference's _moe_sharded) is not ported yet (ROADMAP.md "
-                "queue 1 item 11c)")
+            return self._sharded(x, ctx)
         cfg = self.cfg
         B, S, d = x.shape
         out, aux = dispatch_combine(self.router, self.wi, self.wo,
@@ -141,8 +192,54 @@ class MoE(nn.Module):
             out = out + self.shared(x)
         return out, aux
 
+    def _sharded(self, x, ctx):
+        cfg, m = self.cfg, self.cfg.moe
+        nm = ctx.n_model
+        if m.num_experts % nm:
+            raise ValueError(f"experts {m.num_experts} % model axis {nm}")
+        el = m.num_experts // nm
+        if self.wi.shape[0] != el:
+            raise ValueError(
+                f"a model rank of {nm} holds {el} experts, this module "
+                f"{self.wi.shape[0]}: shard the model first "
+                f"(LM.shard_experts / MoE.shard_)")
+        B, S, d = x.shape
+        use_sp = S % nm == 0 and S >= nm and nm > 1
+        x = sharding.enter_model(x, ctx)
+        if use_sp:
+            sl = S // nm
+            xs = x[:, ctx.model_rank * sl:(ctx.model_rank + 1) * sl]
+        else:
+            xs = x
+        bl, sl, _ = xs.shape
+        wi, wo = self.wi, self.wo
+
+        def cross_expert(buf):
+            # (E, C, d) -> the rank's experts with every rank's tokens
+            _, C, _ = buf.shape
+            recv = sharding.all_to_all(buf, ctx)
+            xe = recv.view(nm, el, C, d).transpose(0, 1) \
+                .reshape(el, nm * C, d)
+            out_e = expert_ffn(wi, wo, xe, cfg.mlp_type)
+            send = out_e.view(el, nm, C, d).transpose(0, 1) \
+                .reshape(nm * el, C, d)
+            return sharding.all_to_all(send, ctx)
+
+        out, aux = dispatch_combine(self.router, wi, wo,
+                                    xs.reshape(bl * sl, d), m, cfg.mlp_type,
+                                    cross_expert_fn=cross_expert)
+        out = out.reshape(bl, sl, d)
+        if m.num_shared_experts:
+            out = out + self.shared(xs)
+        if use_sp:
+            out = sharding.all_gather(out, ctx, dim=1)
+        elif nm > 1:
+            out = sharding.scale_grad(out, 1.0 / nm)
+        aux = sharding.all_reduce(aux, ctx, "world") / ctx.size
+        return out, aux
+
 
 def moe_apply(module: MoE, x, ctx=None):
-    """x: (B, S, d) -> (out, aux loss): the reference's entry point.  The
-    sharded path (``ctx`` given) raises (ROADMAP.md queue 1 item 11c)."""
+    """x: (B, S, d) -> (out, aux loss): the reference's entry point;
+    the sharded path when ``ctx`` is given."""
     return module(x, ctx)

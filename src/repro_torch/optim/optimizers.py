@@ -39,18 +39,23 @@ class OptConfig:
     clip_norm: float = 1.0
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, reduce_sq=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's sum of
-    squares, in float32."""
+    squares, in float32.  ``reduce_sq`` ({path: sum of squares} ->
+    the same, summed over the ranks that shard those leaves) completes a
+    sharded leaf's sum before the total."""
+    sq = {k: torch.sum(torch.square(x.to(F32))) for k, x in tree.items()}
+    if reduce_sq is not None:
+        sq = reduce_sq(sq)
     total = 0
-    for x in tree.values():
-        total = total + torch.sum(torch.square(x.to(F32)))
+    for v in sq.values():
+        total = total + v
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: dict, max_norm):
+def clip_by_global_norm(grads: dict, max_norm, reduce_sq=None):
     """(grads in float32 scaled by min(1, max_norm / norm), norm)."""
-    g = global_norm(grads)
+    g = global_norm(grads, reduce_sq)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
     return {k: x.to(F32) * scale for k, x in grads.items()}, g
 
@@ -110,7 +115,21 @@ def _adafactor_init(params: dict) -> dict:
             "master": _master(params)}
 
 
-def _adafactor_update(grads32, state, params, lr, cfg: OptConfig):
+def _update_rms(k, u, eps, reduce_sq=None):
+    """The update leaf ``k``'s RMS, sqrt(mean(u^2) + eps), over the whole
+    leaf: with ``reduce_sq`` the sum of squares and the element count of a
+    sharded leaf are summed over its ranks first (in float64)."""
+    if reduce_sq is None:
+        return torch.sqrt(torch.mean(u * u) + eps)
+    part = torch.stack([torch.sum(u * u).double(),
+                        torch.tensor(u.numel(), dtype=torch.float64,
+                                     device=u.device)])
+    ss, n = reduce_sq({k: part})[k]
+    return torch.sqrt((ss / n).to(F32) + eps)
+
+
+def _adafactor_update(grads32, state, params, lr, cfg: OptConfig,
+                      reduce_sq=None):
     step = state["step"] + 1
     beta2 = 1.0 - step.to(F32) ** -0.8
     eps = 1e-30
@@ -130,7 +149,7 @@ def _adafactor_update(grads32, state, params, lr, cfg: OptConfig):
             u = g * torch.rsqrt(v + eps)
             st2[k] = {"v": v}
         # update clipping (RMS <= 1), one RMS over the whole (stacked) leaf
-        rms = torch.sqrt(torch.mean(u * u) + eps)
+        rms = _update_rms(k, u, eps, reduce_sq)
         u = u / torch.clamp(rms, min=1.0)
         new = master - lr * (u + cfg.weight_decay * master)
         new_p[k], ma2[k] = new.to(p.dtype), new
@@ -151,15 +170,18 @@ def init_opt(cfg: OptConfig, params: dict) -> dict:
     raise ValueError(cfg.name)
 
 
-def opt_update(cfg: OptConfig, grads: dict, state: dict, params: dict, lr):
+def opt_update(cfg: OptConfig, grads: dict, state: dict, params: dict, lr,
+               reduce_sq=None):
     """grads may be any float dtype; clipping and the update in float32.
     Returns (new params {path: tensor in each parameter's dtype}, new
-    state, grad norm)."""
-    grads32, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    state, grad norm).  ``reduce_sq``: see :func:`global_norm`; it also
+    completes Adafactor's update RMS over a sharded leaf."""
+    grads32, gnorm = clip_by_global_norm(grads, cfg.clip_norm, reduce_sq)
     if cfg.name == "adamw":
         params2, state2 = _adamw_update(grads32, state, params, lr, cfg)
     elif cfg.name == "adafactor":
-        params2, state2 = _adafactor_update(grads32, state, params, lr, cfg)
+        params2, state2 = _adafactor_update(grads32, state, params, lr, cfg,
+                                            reduce_sq)
     else:
         raise ValueError(cfg.name)
     return params2, state2, gnorm

@@ -26,26 +26,39 @@ and chip_smoke.py phase 12c):
 Each step's ``history`` entry also holds ``step_s``: host seconds from
 making the batch to the loss on the host (which waits for the device),
 before the checkpoint snapshot.
+
+Sharded training (``ctx``): each rank takes its B / n_data rows of the
+global batch (``tcfg.microbatch`` is global, as in the reference) and
+holds its model rank's E / n_model experts; :func:`reduce_grads` sums the
+gradients over the data group -- and the router's and shared experts'
+over the model group too -- so one step equals the reference's global
+jitted step.  Each model rank owns its experts' gradients and optimizer
+state, and the grad norm sums the squares of the expert shards over the
+model group, as does Adafactor's update RMS over an expert leaf; the
+EF-int8 roundtrip blocks each leaf as the global leaf is blocked
+(:func:`_compress`).  The non-expert parameters stay replicated (the
+run-time FSDP / TP placements are ROADMAP.md queue 1 item 11e); with
+``ctx`` each rank checkpoints into its own ``rank<r>`` subdirectory.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import ckpt as ckptlib
 from repro_torch.core.batched import resolve_device
-from repro_torch.models import convert, lm
+from repro_torch.models import convert, lm, sharding
 from repro_torch.optim import OptConfig, cosine_schedule, init_opt, opt_update
 
 from . import compress as compress_lib
 
-__all__ = ["TrainConfig", "make_train_step", "grads_of", "Trainer"]
-
-_SHARDED = ("sharded training (ctx=) is not ported yet (ROADMAP.md queue 1 "
-            "item 11c)")
+__all__ = ["TrainConfig", "make_train_step", "grads_of", "reduce_grads",
+           "Trainer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +75,13 @@ class TrainConfig:
     opt: OptConfig = dataclasses.field(default_factory=OptConfig)
 
 
-def grads_of(model, batch):
+def grads_of(model, batch, ctx=None):
     """(loss, {path: gradient of the reference's leaf}) of one batch, in
     the parameters' dtype; a parameter the loss does not reach gets
-    zeros, as ``jax.grad`` gives."""
+    zeros, as ``jax.grad`` gives.  With ``ctx``: the global loss and this
+    rank's share of the gradient (:func:`reduce_grads` completes it)."""
     groups = convert.leaf_groups(model)
-    loss = lm.loss_fn(model, batch)
+    loss = lm.loss_fn(model, batch, ctx)
     flat = [p for ps in groups.values() for p in ps]
     it = iter(torch.autograd.grad(loss, flat, allow_unused=True))
     grads = {}
@@ -76,6 +90,69 @@ def grads_of(model, batch):
         grads[path] = convert.stack(path, [
             torch.zeros_like(p) if g is None else g for g, p in zip(gs, ps)])
     return loss.detach(), grads
+
+
+def _leaf_group(path: str) -> str:
+    """The group a leaf's gradient is summed over: "data" for an expert
+    shard and every replicated parameter outside the MoE, "world" for the
+    router and the shared experts (each model rank differentiates its
+    own tokens through them)."""
+    name = path.replace("/", ".")
+    if sharding.in_moe(name) and not sharding.is_expert(name):
+        return "world"
+    return "data"
+
+
+def reduce_grads(grads: dict, ctx) -> dict:
+    """Each rank's gradient shares summed into the global gradient, one
+    all-reduce per (group, dtype) over the leaves flattened together."""
+    buckets: dict = {}
+    for path, g in grads.items():
+        buckets.setdefault((_leaf_group(path), g.dtype), []).append(path)
+    out = dict(grads)
+    for (group, _), paths in buckets.items():
+        flat = torch.cat([grads[p].reshape(-1) for p in paths])
+        flat = sharding.all_reduce(flat, ctx, group)
+        for p, part in zip(paths, torch.split(
+                flat, [grads[p].numel() for p in paths])):
+            out[p] = part.view(grads[p].shape)
+    return out
+
+
+def _expert_sq_reducer(ctx):
+    """Sum the experts' squared norms over the model group (the other
+    leaves are whole on every rank)."""
+    def reduce_sq(sq):
+        keys = [k for k in sq if sharding.is_expert(k.replace("/", "."))]
+        if not keys:
+            return sq
+        summed = sharding.all_reduce(torch.stack([sq[k] for k in keys]),
+                                     ctx, "model")
+        return {**sq, **dict(zip(keys, summed.unbind()))}
+    return reduce_sq
+
+
+def _compress(grads, err_state, ctx):
+    """EF-int8 roundtrip of every leaf, blocked as the reference blocks
+    the global leaf.  An expert shard whose experts fill whole blocks
+    holds whole blocks of the global leaf; otherwise blocks straddle the
+    model ranks' experts, so the shard and its residual are gathered over
+    the model group, the whole leaf goes through the roundtrip, and the
+    rank keeps its experts of both."""
+    if ctx is None or ctx.n_model == 1:
+        return compress_lib.compress_grads(grads, err_state)
+    new_g, new_e = {}, {}
+    for k, g in grads.items():
+        ax = 1 if convert.is_stacked(k) else 0
+        if not sharding.is_expert(k.replace("/", ".")) or \
+                math.prod(g.shape[ax:]) % compress_lib.BLOCK == 0:
+            new_g[k], new_e[k] = compress_lib.ef_roundtrip(g, err_state[k])
+            continue
+        whole = [sharding.all_gather(t, ctx, ax) for t in (g, err_state[k])]
+        el, r = g.shape[ax], ctx.model_rank
+        new_g[k], new_e[k] = (t.narrow(ax, r * el, el).contiguous()
+                              for t in compress_lib.ef_roundtrip(*whole))
+    return new_g, new_e
 
 
 def _accumulate(acc, grads, nm):
@@ -96,13 +173,19 @@ def make_train_step(cfg, tcfg: TrainConfig, ctx=None):
     updated in place; opt_state / err_state are the optimizer's and the
     compressor's state over :func:`~repro_torch.models.convert.stacks`'
     leaves; batch holds tensors on the model's device; metrics are
-    float32 scalar tensors "loss", "grad_norm", "lr"."""
-    if ctx is not None:
-        raise NotImplementedError(_SHARDED)
+    float32 scalar tensors "loss", "grad_norm", "lr".
+
+    With ``ctx`` the batch is this rank's rows and the model holds its
+    rank's experts; ``tcfg.microbatch`` counts global rows."""
+    n_data = 1 if ctx is None else ctx.n_data
+    if tcfg.microbatch % n_data:
+        raise ValueError(f"microbatch {tcfg.microbatch} is no multiple of "
+                         f"the {n_data} data ranks")
+    reduce_sq = None if ctx is None else _expert_sq_reducer(ctx)
 
     def train_step(model, opt_state, err_state, batch, step):
         if tcfg.microbatch:
-            mb = tcfg.microbatch
+            mb = tcfg.microbatch // n_data
             B = batch["labels"].shape[0]
             if B % mb:
                 raise ValueError(f"batch {B} is no multiple of microbatch "
@@ -113,18 +196,20 @@ def make_train_step(cfg, tcfg: TrainConfig, ctx=None):
                                     device=v.device)
                      for k, v in convert.stacks(model).items()}
             for i in range(nm):
-                l, g = grads_of(model, _microbatch(batch, i, mb))
+                l, g = grads_of(model, _microbatch(batch, i, mb), ctx)
                 grads = _accumulate(grads, g, nm)
                 loss = loss + l / nm
         else:
-            loss, grads = grads_of(model, batch)
+            loss, grads = grads_of(model, batch, ctx)
+        if ctx is not None:
+            grads = reduce_grads(grads, ctx)
         if tcfg.grad_compression == "int8":
-            grads, err_state = compress_lib.compress_grads(grads, err_state)
+            grads, err_state = _compress(grads, err_state, ctx)
         lr = cosine_schedule(step, peak_lr=tcfg.opt.peak_lr,
                              warmup_steps=tcfg.opt.warmup_steps,
                              decay_steps=tcfg.opt.decay_steps)
         params, opt_state, gnorm = opt_update(
-            tcfg.opt, grads, opt_state, convert.stacks(model), lr)
+            tcfg.opt, grads, opt_state, convert.stacks(model), lr, reduce_sq)
         for path, ps in convert.leaf_groups(model).items():
             convert.write_back(path, ps, params[path])
         metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm,
@@ -136,12 +221,18 @@ def make_train_step(cfg, tcfg: TrainConfig, ctx=None):
 
 class Trainer:
     """Fault-tolerant loop around the step, on ``device`` (None: the
-    card; raises without one).  ``ctx`` (sharded training) raises."""
+    card; raises without one).  With ``ctx`` every rank of the mesh runs
+    one Trainer on the same data stream, takes its rows, and checkpoints
+    into ``ckpt_dir/rank<r>``."""
 
     def __init__(self, cfg, tcfg: TrainConfig, data_stream, ctx=None,
                  policy=None, device=None):
         self.step_fn = make_train_step(cfg, tcfg, ctx)
         self.cfg = cfg
+        self.ctx = ctx
+        if ctx is not None:
+            tcfg = dataclasses.replace(tcfg, ckpt_dir=os.path.join(
+                tcfg.ckpt_dir, f"rank{dist.get_rank()}"))
         self.tcfg = tcfg
         self.data = data_stream
         self.policy = policy
@@ -154,7 +245,7 @@ class Trainer:
         """The model from a seeded generator on the device, trainable,
         and its optimizer (and error-feedback) state."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        model = lm.init(self.cfg, gen, self.device).trainable()
+        model = lm.init(self.cfg, gen, self.device, self.ctx).trainable()
         params = convert.stacks(model)
         opt_state = init_opt(self.tcfg.opt, params)
         err_state = (compress_lib.init_error_state(params)
@@ -179,6 +270,15 @@ class Trainer:
             convert.write_back(path, ps, params[path])
         return step + 1, (model, opt_state, err_state)
 
+    def _local(self, arrays):
+        """The rank's rows of a global batch, on the device."""
+        rows = slice(None)
+        if self.ctx is not None:
+            rows = self.ctx.local_rows(len(arrays["labels"]))
+        return {k: torch.from_numpy(v[:, rows] if k == "positions"
+                                    else v[rows]).to(self.device)
+                for k, v in arrays.items()}
+
     def run(self, fail_hook=None):
         """fail_hook(step) may raise to simulate failures (tests).
         Returns (model, opt_state)."""
@@ -190,8 +290,7 @@ class Trainer:
                 if fail_hook is not None:
                     fail_hook(step)
                 t0 = time.perf_counter()
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in self.data.batch_at(step).items()}
+                batch = self._local(self.data.batch_at(step))
                 model, opt_state, err_state, metrics = self.step_fn(
                     model, opt_state, err_state, batch, step)
                 loss = float(metrics["loss"])     # waits for the step

@@ -32,6 +32,9 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
         "import repro_torch.train, repro_torch.train.pipeline\n"
         "import repro_torch.launch.train, repro_torch.models.convert\n"
+        "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.specs, repro_torch.launch.flops\n"
+        "import repro_torch.launch.dryrun\n"
         "assert callable(repro_torch.plan.warm_bandwidths)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

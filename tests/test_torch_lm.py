@@ -239,26 +239,16 @@ def test_sampling_takes_first_maximum():
 
 
 def test_unported_paths_raise():
-    """What is still to port raises, naming its ROADMAP.md item: the
-    sharded paths (training with ctx, the sharded MoE path: item 11c;
-    training itself is item 11b, ported); a model built with no device
-    asks for the card."""
+    """A model built with no device asks for the card (every module of
+    the reference is ported; the sharded paths are held to the
+    reference's in tests/test_torch_moe_sharded.py and
+    tests/test_torch_lm_sharded.py)."""
     from repro_torch.models import moe as tmoe
     cfg = tconfigs.reduced(ARCH)
-    model = tlm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.long),
-             "labels": torch.ones((1, 4), dtype=torch.long)}
-    for fn in (tlm.forward, tlm.loss_fn):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                           "item 11c"):
-            fn(model, batch, ctx=object())
     mcfg = tconfigs.reduced("olmoe-1b-7b")
     layer = tmoe.MoE(mcfg, torch.float32, torch.Generator().manual_seed(0))
     x = torch.zeros((1, 4, mcfg.d_model))
     assert tmoe.moe_apply(layer, x)[0].shape == x.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                       "item 11c"):
-        tmoe.moe_apply(layer, x, ctx=object())
     if not torch.cuda.is_available():     # no device given: the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tlm.init(cfg, torch.Generator())

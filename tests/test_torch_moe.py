@@ -145,10 +145,3 @@ def test_init_shapes_match_reference():
         assert tuple(mod.wo.shape) == p["wo"].shape
         assert tuple(mod.router.shape) == p["router"].shape
         assert ("shared" in p) == hasattr(mod, "shared")
-
-
-def test_sharded_path_raises():
-    _, _, _, mod = _pair("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tmoe.moe_apply(mod, torch.zeros((1, 2, mod.cfg.d_model)),
-                       ctx=object())

@@ -106,8 +106,7 @@ def test_remat_policies_give_equal_grads(arch):
 
 def test_forward_is_the_final_hidden_state():
     """forward returns the final-normed hidden states and the summed MoE
-    aux loss (0 without MoE; positive with it); ctx raises naming item
-    11c."""
+    aux loss (0 without MoE; positive with it)."""
     for arch, has_aux in (("smollm-135m", False), ("olmoe-1b-7b", True)):
         cfg = tconfigs.reduced(arch)
         model = tlm.init(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -115,8 +114,6 @@ def test_forward_is_the_final_hidden_state():
         x, aux = tlm.forward(model, batch)
         assert x.shape == (B, S, cfg.d_model) and x.dtype == torch.float32
         assert (float(aux) > 0) == has_aux
-    with pytest.raises(NotImplementedError, match="11c"):
-        tlm.loss_fn(model, batch, ctx=object())
 
 
 def test_trainable_switch_leaves_serving_without_grad():
