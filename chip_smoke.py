@@ -78,7 +78,10 @@ Phases (any failure exits non-zero):
      D = 192) heads at B = 1, S = 2048, bq 64, bf16 and f32 (timed);
      D = 36, 128, 192 and 256;
      the reference's edge shapes (S 64 / 128, bq 16 / 32 / 64,
-     Hq / Hkv 4/4, 4/2, 4/1); at every shape ATTN_TOL must
+     Hq / Hkv 4/4, 4/2, 4/1); the rank-local heads of a placed prefill
+     at n_model = 2 and 16 (every architecture whose KV heads the model
+     axis divides, e.g. olmoe-1b-7b (1, 1) D 128 and gemma-7b (1, 1)
+     D 256 at 16; B = 2, S = 2048, bf16); at every shape ATTN_TOL must
      reject faults planted in the plain version (p not rounded before
      P V, scores in TF32, the diagonal kv block dropped);
   7b. the serve path: smollm-135m at its published config (bf16, random
@@ -172,18 +175,25 @@ Phases (any failure exits non-zero):
      (one restart, every step once), a planted KeyboardInterrupt replay
      (losses within rel 1e-5 of an uninterrupted run) and the card's
      checkpoint restored on the CPU;
- 13. (every plan freed first) the sharded LM path on a one-rank NCCL
-     (1, 1) ("data", "model") mesh (repro_torch.launch.mesh.local_ctx):
+ 13. (every plan freed first) the placed sharded LM path on a one-rank
+     NCCL (1, 1) ("data", "model") mesh (repro_torch.launch.mesh
+     .local_ctx), every parameter placed by the reference's FSDP / TP
+     rules (lm.init(..., ctx=); at one rank each block is the whole):
      13a. olmoe-1b-7b at its published width and depth (bf16, random
      weights, torch.Generator seed 0): prefill of batch 2 x prompt 2048
      and 16 decode steps with ctx, every logit and state torch.equal to
-     the ctx=None path's, one attention launch per layer of the sharded
-     prefill, two all-to-alls per MoE layer per call and no all-gather
+     the ctx=None path's, one attention launch per layer of the placed
+     prefill, two all-to-alls per MoE layer per call, one all-gather for
+     the vocab-split logits and none of weights (at one data rank the
+     FSDP gather is the identity and is skipped), no reduce-scatter
      (counts zeroed just before each call and read just after), ms per
      prefill and decode step of both paths, peak memory; 13b. two
-     make_train_step(..., ctx) AdamW steps of olmoe-1b-7b at full width
-     cut to 2 layers, batch 2 x 512, against the ctx=None steps from the
-     same seeds: loss, grad norm and every parameter torch.equal.
+     make_train_step(..., ctx, param_shardings=) AdamW steps of
+     olmoe-1b-7b placed at full width cut to 2 layers, batch 2 x 512,
+     against the unplaced ctx=None steps from the same seeds: loss, grad
+     norm and every parameter torch.equal; 13c. glm4-9b (a dense MLP, a
+     vocab-split embedding and head) at its published width and depth as
+     13a: 40 attention launches per placed prefill.
 The line before the last is one JSON object {"kernels": [...]} (eleven
 kernels); the last is {"ok": true, "device": {...}}.  Long logs go to
 the output directory OUT.
@@ -1848,7 +1858,44 @@ def attention_cases() -> dict:
         for Hq, Hkv in ((4, 4), (4, 2), (4, 1)):
             recs[f"edge_S{S}_bq{bq}_{Hq}_{Hkv}"] = attention_case(
                 2, Hq, Hkv, S, 32, f32, bq, seed=S + bq + Hkv)
+    recs.update(local_head_cases())
     torch.cuda.empty_cache()
+    return recs
+
+
+# n_model ranks of a placed prefill whose rules split whole KV heads
+LOCAL_HEAD_SPLITS = (2, 16)
+
+
+def local_head_cases() -> dict:
+    """The kernel at the rank-local head counts a placed prefill of
+    SHARD_BATCH x SHARD_PROMPT launches at n_model = 2 and 16, for every
+    architecture with kernel layers whose KV heads the model axis divides
+    (each rank then computes Hq / n query and Hkv / n KV heads), bf16 at
+    the prefill's block.  A multi-rank mesh cannot run on one card, so
+    these shapes are checked alone."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import folded_attention as fa
+    from repro_torch.models import attention
+    recs, seen = {}, set()
+    for arch in configs.ARCH_NAMES:
+        cfg = configs.get(arch)
+        if "attn" not in cfg.block_pattern or cfg.logit_softcap:
+            continue
+        for n in LOCAL_HEAD_SPLITS:
+            if cfg.num_kv_heads % n:
+                continue
+            Hq, Hkv, D = cfg.num_heads // n, cfg.num_kv_heads // n, \
+                cfg.head_dim
+            bq = attention.attention_block(SHARD_PROMPT, fa.max_bq(D))
+            key = (Hq, Hkv, D, bq)
+            if key in seen:
+                continue
+            seen.add(key)
+            recs[f"local_{arch}_n{n}"] = attention_case(
+                SHARD_BATCH, Hq, Hkv, SHARD_PROMPT, D, torch.bfloat16, bq,
+                seed=90 + n + D)
     return recs
 
 
@@ -3738,6 +3785,7 @@ def train_fault_tolerance() -> dict:
 # ---------------------------------------------------------------------------
 
 SHARD_ARCH = "olmoe-1b-7b"
+SHARD_DENSE_ARCH = "glm4-9b"      # 13c: a dense MLP, a vocab-split embedding
 SHARD_BATCH, SHARD_PROMPT, SHARD_DECODE = 2, 2048, 16
 # 13b: full width, depth cut from 16 to 2 layers (bf16 weights 2.1 GB,
 # AdamW's float32 mu / nu / master about 10 GB), batch 2 x 512, 2 steps
@@ -3756,21 +3804,44 @@ def _reset_counts():
     sharding.reset_collectives()
 
 
-def sharded_serve(ctx) -> dict:
-    """Phase 13a: olmoe-1b-7b at its published width and depth (bf16,
-    torch.Generator seed 0) on the one-rank (1, 1) mesh: prefill of
-    SHARD_BATCH x SHARD_PROMPT and SHARD_DECODE teacher-forced decode
-    steps with ctx and without.  Every logit and state equal bit for bit
-    (at one rank every collective is a copy or a one-term sum and the
-    capacity is the local one); one attention launch per layer of the
-    sharded prefill, two all-to-alls per MoE layer per call, no
-    all-gather (no sequence parallelism at n_model = 1); the counts
-    zeroed just before each call and read just after."""
+def _bucket_gathers(model, ctx) -> int:
+    """All-gathers one placed call makes: with more than one data rank
+    one a dtype of each block's data-sharded weights and one for the
+    embedding and head (none at one data rank); one for the vocab-split
+    logits."""
+    from repro_torch.models import sharding
+
+    split_head = int(sharding.split_on(model, model._head_name, 0))
+    if ctx.n_data == 1:
+        return split_head
+
+    def dtypes(items):
+        return len({p.dtype for _, p, spec in items
+                    if any(ax is not None and ax != ctx.model_axis
+                           for ax in spec)})
+    n = sum(dtypes(sharding._param_items(b)) for b in model.blocks)
+    n += dtypes(sharding._param_items(model, ("embed", "head")))
+    return n + split_head
+
+
+def sharded_serve(ctx, arch=SHARD_ARCH, tag="13a") -> dict:
+    """Phases 13a / 13c: ``arch`` at its published width and depth (bf16,
+    torch.Generator seed 0), placed on the one-rank (1, 1) mesh
+    (``lm.init(..., ctx=)``: every parameter cut to the rules' block, here
+    the whole): prefill of SHARD_BATCH x SHARD_PROMPT and SHARD_DECODE
+    teacher-forced decode steps with ctx and without.  Every logit and
+    state equal bit for bit (at one rank every collective is a copy or a
+    one-term sum, a gather keeps its input's layout, and the capacity is
+    the local one); one attention launch per plain causal layer of the
+    placed prefill, two all-to-alls per MoE layer per call, and the
+    all-gathers of :func:`_bucket_gathers` (here the vocab-split
+    logits' alone); the counts zeroed just before each call and read
+    just after."""
     import torch
     from repro_torch import configs
-    from repro_torch.models import attention, lm
+    from repro_torch.models import attention, lm, sharding
 
-    cfg = configs.get(SHARD_ARCH)
+    cfg = configs.get(arch)
     B, S, n = SHARD_BATCH, SHARD_PROMPT, SHARD_DECODE
     gc.collect()
     torch.cuda.empty_cache()
@@ -3786,10 +3857,14 @@ def sharded_serve(ctx) -> dict:
     n_kernel = sum(isinstance(b.mixer, attention.Attention)
                    and b.mixer.uses_kernel for b in model.blocks)
     n_moe = sum(hasattr(b, "moe") for b in model.blocks)
+    n_gather = _bucket_gathers(model, ctx)
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"  {SHARD_ARCH}: {cfg.num_layers} layers, {n_moe} MoE, "
-        f"{weights} bytes of {cfg.param_dtype}, built in {build_s:.2f} s; "
-        f"mesh {ctx.shape} {ctx.axis_names}")
+    specs = sharding.placements_of(model)
+    placed = sum(1 for spec in specs.values() if spec)
+    log(f"  {arch}: {cfg.num_layers} layers, {n_moe} MoE, {weights} bytes "
+        f"of {cfg.param_dtype}, {placed} of {len(specs)} "
+        f"parameters placed, built in {build_s:.2f} s; mesh {ctx.shape} "
+        f"{ctx.axis_names}")
     prompt, max_len = tokens[:, :S], S + n
 
     def serve(c, counts=None):
@@ -3824,17 +3899,22 @@ def sharded_serve(ctx) -> dict:
               if v and k != "folded_causal_attention"}
     coll_pre = counts["prefill"]["collectives"]
     coll_dec = counts["decode"]["collectives"]
-    log(f"    sharded prefill: attention launches {attn} (want {n_kernel}),"
+    log(f"    placed prefill: attention launches {attn} (want {n_kernel}),"
         f" collectives {coll_pre}; {n} decode steps: {coll_dec}")
     if attn != n_kernel or others:
-        fail(f"13a: {attn} attention launches (and {others}) in one sharded "
-             f"prefill of {n_kernel} plain causal layers")
+        fail(f"{tag}: {attn} attention launches (and {others}) in one placed"
+             f" prefill of {n_kernel} plain causal layers")
     if coll_pre.get("all-to-all", 0) != 2 * n_moe or \
             coll_dec.get("all-to-all", 0) != 2 * n_moe * n:
-        fail(f"13a: all-to-alls {coll_pre} / {coll_dec}, want 2 per MoE "
+        fail(f"{tag}: all-to-alls {coll_pre} / {coll_dec}, want 2 per MoE "
              f"layer per call ({n_moe} layers)")
-    if coll_pre.get("all-gather", 0) or coll_dec.get("all-gather", 0):
-        fail("13a: an all-gather at n_model = 1 (no sequence parallelism)")
+    if coll_pre.get("all-gather", 0) != n_gather or \
+            coll_dec.get("all-gather", 0) != n_gather * n:
+        fail(f"{tag}: all-gathers {coll_pre} / {coll_dec}, want {n_gather} "
+             f"a call (the logits; no weight gather at one data rank, no "
+             f"sequence parallelism at n_model = 1)")
+    if coll_pre.get("reduce-scatter", 0) or coll_dec.get("reduce-scatter", 0):
+        fail(f"{tag}: a reduce-scatter while serving")
     (pl, pst), pouts, pfin = plain
     (sl, sst), souts, sfin = sharded
     equal = {"prefill_logits": torch.equal(pl, sl),
@@ -3848,17 +3928,18 @@ def sharded_serve(ctx) -> dict:
         bool(torch.isfinite(o).all()) for o in souts)
     log(f"    ctx vs ctx=None, bit for bit: {equal}; finite {finite}")
     if not all(equal.values()) or not finite:
-        fail(f"13a: the sharded path differs from the unsharded one "
+        fail(f"{tag}: the placed path differs from the unsharded one "
              f"({equal}, finite {finite})")
     del plain, sharded, pl, pst, pouts, pfin, sl, sst, souts, sfin
 
-    res = {"arch": SHARD_ARCH, "layers": cfg.num_layers, "batch": B,
+    res = {"arch": arch, "layers": cfg.num_layers, "batch": B,
            "prompt": S, "decode_steps": n, "weight_bytes": weights,
-           "build_s": build_s, "launches_per_prefill": attn,
+           "placed_parameters": placed, "build_s": build_s,
+           "launches_per_prefill": attn, "gathers_per_call": n_gather,
            "collectives_prefill": coll_pre, "collectives_decode": coll_dec,
            "bitwise_equal": equal}
-    for tag, c in (("plain", None), ("sharded", ctx)):
-        res[f"prefill_ms_{tag}"] = cuda_ms(
+    for mode, c in (("plain", None), ("sharded", ctx)):
+        res[f"prefill_ms_{mode}"] = cuda_ms(
             lambda c=c: model.prefill(prompt, max_len, ctx=c), 2)
         _, states = model.prefill(prompt, max_len, ctx=c)
         torch.cuda.synchronize()
@@ -3867,11 +3948,11 @@ def sharded_serve(ctx) -> dict:
             _, states = model.decode_step(tokens[:, S + i:S + i + 1], states,
                                           S + i, ctx=c)
         torch.cuda.synchronize()
-        res[f"decode_ms_per_step_{tag}"] = (time.perf_counter() - t0) \
+        res[f"decode_ms_per_step_{mode}"] = (time.perf_counter() - t0) \
             * 1e3 / n
         del states
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"    prefill {res['prefill_ms_sharded']:.1f} ms sharded / "
+    log(f"    prefill {res['prefill_ms_sharded']:.1f} ms placed / "
         f"{res['prefill_ms_plain']:.1f} ms unsharded (CUDA events); decode "
         f"{res['decode_ms_per_step_sharded']:.2f} / "
         f"{res['decode_ms_per_step_plain']:.2f} ms/step (host clock, "
@@ -3883,15 +3964,16 @@ def sharded_serve(ctx) -> dict:
 
 
 def sharded_train(ctx) -> dict:
-    """Phase 13b: SHARD_TRAIN_STEPS make_train_step(..., ctx) AdamW steps
-    of olmoe-1b-7b at full width, depth cut to SHARD_TRAIN_LAYERS (bf16),
-    batch SHARD_TRAIN_BATCH x SHARD_TRAIN_SEQ, against the same steps
-    without ctx from the same seeds: every loss, grad norm and parameter
-    equal bit for bit."""
+    """Phase 13b: SHARD_TRAIN_STEPS make_train_step(..., ctx,
+    param_shardings=) AdamW steps of olmoe-1b-7b placed at full width,
+    depth cut to SHARD_TRAIN_LAYERS (bf16), batch SHARD_TRAIN_BATCH x
+    SHARD_TRAIN_SEQ, against the same steps of the unplaced model without
+    ctx from the same seeds: every loss, grad norm and parameter equal
+    bit for bit."""
     import dataclasses
     import torch
     from repro_torch import configs
-    from repro_torch.models import convert, lm
+    from repro_torch.models import convert, lm, sharding
     from repro_torch.optim import OptConfig, init_opt
     from repro_torch.train import TrainConfig, make_train_step
 
@@ -3916,7 +3998,9 @@ def sharded_train(ctx) -> dict:
         g = torch.Generator(device=DEV).manual_seed(0)
         model = lm.init(cfg, g, ctx=c).trainable()
         st = init_opt(tcfg.opt, convert.stacks(model))
-        step = make_train_step(cfg, tcfg, c)
+        rules = None if c is None else sharding.param_placements(
+            lm.LM(cfg, device="meta"), c)
+        step = make_train_step(cfg, tcfg, c, param_shardings=rules)
         metrics, times = [], []
         _reset_counts()
         for s, batch in enumerate(batches):
@@ -4226,13 +4310,18 @@ def main() -> int:
     from repro_torch.launch.mesh import local_ctx
     t13 = time.perf_counter()
     with local_ctx(torch.device(DEV, 0)) as ctx:
-        log(f"== 13a. sharded serving: {SHARD_ARCH} on a one-rank NCCL "
+        log(f"== 13a. placed serving: {SHARD_ARCH} on a one-rank NCCL "
             f"mesh {ctx.shape}, prefill {SHARD_BATCH} x {SHARD_PROMPT}, "
             f"{SHARD_DECODE} decode steps, ctx against ctx=None")
         shard_serve = sharded_serve(ctx)
-        log(f"== 13b. sharded training: {SHARD_TRAIN_STEPS} "
-            f"make_train_step(..., ctx) steps against ctx=None")
+        log(f"== 13b. placed training: {SHARD_TRAIN_STEPS} "
+            f"make_train_step(..., ctx, param_shardings=) steps against "
+            f"ctx=None")
         shard_train = sharded_train(ctx)
+        log(f"== 13c. placed dense serving: {SHARD_DENSE_ARCH}, prefill "
+            f"{SHARD_BATCH} x {SHARD_PROMPT}, {SHARD_DECODE} decode steps, "
+            f"ctx against ctx=None")
+        shard_dense = sharded_serve(ctx, SHARD_DENSE_ARCH, "13c")
     log(f"  phase 13: {time.perf_counter() - t13:.1f} s")
 
     main_counts = {**{k: counts[k] for k in ("dwt_fused", "idwt_fused")},
@@ -4255,6 +4344,8 @@ def main() -> int:
             kernels[-1]["launches_train"] = train["launches"].get(name, 0)
             kernels[-1]["launches_sharded_prefill"] = \
                 shard_serve["launches_per_prefill"]
+            kernels[-1]["launches_placed_prefill_dense"] = \
+                shard_dense["launches_per_prefill"]
             continue
         main_rec = {**recs, **srecs, **trecs, **orecs}[name]
         extra = {"f32_B64": {**recs32, **srecs32, **trecs32, **orecs32}[name]}
@@ -4342,6 +4433,7 @@ def main() -> int:
                "train_path": train, "train_parity": train_par,
                "train_fault_tolerance": train_ft, "train_tol": TRAIN_TOL,
                "sharded_serve": shard_serve, "sharded_train": shard_train,
+               "sharded_serve_dense": shard_dense,
                "build_s": build_s,
                "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke_summary.json").write_text(json.dumps(

@@ -21,8 +21,13 @@ Guarantees:
   * async -- AsyncCheckpointer copies to host memory synchronously and
     serializes on a background thread, overlapping training;
   * relocation -- :func:`restore_to_device` places each leaf on a device
-    (the torch counterpart of the reference's ``restore_with_shardings``:
-    a checkpoint written from the card restores on the CPU and back);
+    (a checkpoint written from the card restores on the CPU and back);
+  * elasticity -- a placed run writes whole leaves
+    (:func:`save_with_placements`: rank 0 assembles each leaf on disk one
+    block at a time), and :func:`restore_with_placements` reads each
+    rank's block of them, leaf by leaf, under a mesh of any shape: the
+    counterpart of the reference's ``restore_with_shardings``.  Neither
+    holds more than one block of one leaf beyond the rank's own blocks;
   * retention -- keep_n garbage collection of old steps.
 
 Leaves are torch tensors (any device) or numpy arrays when saving, and
@@ -31,9 +36,12 @@ CPU tensors when loading.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
+import struct
 import threading
+import zipfile
 import zlib
 
 import numpy as np
@@ -42,7 +50,8 @@ import torch.distributed as dist
 
 __all__ = ["flatten_paths", "process_count", "process_index",
            "save_checkpoint", "latest_step",
-           "load_checkpoint", "restore_to_device", "gc_checkpoints",
+           "load_checkpoint", "restore_to_device", "save_with_placements",
+           "restore_with_placements", "gc_checkpoints",
            "AsyncCheckpointer"]
 
 
@@ -190,6 +199,209 @@ def restore_to_device(base: str, template, device, step: int | None = None):
                              f"expected {tuple(want[k].shape)}")
         placed[k] = t.to(device=device, dtype=want[k].dtype)
     return step, _unflatten_like(template, placed), meta
+
+
+def _whole_shape(t, spec, ctx) -> tuple:
+    from repro_torch.models.sharding import group_name
+    return tuple(d * ({"model": ctx.n_model, "data": ctx.n_data}[
+        group_name(ctx, ax)] if ax is not None else 1)
+        for d, ax in zip(t.shape, tuple(spec) + (None,) * t.ndim))
+
+
+def _block_index(whole, spec, ctx, data_rank, model_rank) -> tuple:
+    """The slices of the block that the rank at (data_rank, model_rank)
+    holds of a whole leaf of shape ``whole`` under ``spec``."""
+    from repro_torch.models.sharding import group_name
+    out = []
+    for dim, size in enumerate(whole):
+        ax = spec[dim] if dim < len(spec) else None
+        if ax is None:
+            out.append(slice(None))
+            continue
+        model = group_name(ctx, ax) == "model"
+        r, n = (model_rank, ctx.n_model) if model else (data_rank,
+                                                         ctx.n_data)
+        out.append(slice(r * (size // n), (r + 1) * (size // n)))
+    return tuple(out)
+
+
+def _first_holder(spec, ctx, data_rank, model_rank) -> bool:
+    """The rank holds its block first among the ranks that hold the same
+    block (rank 0 of each group the placement does not split)."""
+    from repro_torch.models.sharding import group_name
+    used = {group_name(ctx, ax) for ax in spec if ax is not None}
+    return ("model" in used or model_rank == 0) and \
+        ("data" in used or data_rank == 0)
+
+
+def _coords(ctx, device) -> list:
+    """[(data rank, model rank)] of every rank of the world group, in
+    its rank order."""
+    mine = torch.tensor([ctx.data_rank, ctx.model_rank], dtype=torch.int64,
+                        device=device)
+    out = torch.empty((2 * ctx.size,), dtype=torch.int64, device=device)
+    dist.all_gather_into_tensor(out, mine, group=ctx.world_group)
+    return [tuple(c) for c in out.view(-1, 2).tolist()]
+
+
+def _np_dtype(t: torch.Tensor):
+    """(numpy dtype stored, true dtype string) of tensor ``t``'s leaf."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.uint16), "bfloat16"
+    dt = torch.empty((0,), dtype=t.dtype).numpy().dtype
+    return dt, str(dt)
+
+
+_CHUNK = 1 << 26    # bytes a CRC pass reads at once
+
+
+def _crc_chunked(arr) -> int:
+    """CRC32 of ``arr``'s bytes in C order (:func:`_crc`), read in
+    chunks (``arr`` may be a memory map larger than the host's memory)."""
+    flat = arr.reshape(-1)
+    step = max(_CHUNK // max(arr.itemsize, 1), 1)
+    crc = 0
+    for i in range(0, flat.size, step):
+        crc = zlib.crc32(np.ascontiguousarray(flat[i:i + step]), crc)
+    return crc
+
+
+def save_with_placements(base: str, step: int, tree, placements: dict,
+                         ctx, meta: dict | None = None):
+    """Elastic save of a placed run (every rank calls it; collective):
+    whole leaves in :func:`save_checkpoint`'s format and directory, each
+    of the rank's blocks under ``placements`` ({flattened key:
+    placement}).  Leaf by leaf, each block's first holder sends it to
+    rank 0 (world group), which writes it into its place in a
+    memory-mapped .npy on disk and then stores the file in arrays.npz: no
+    rank holds more than its own blocks and one received block, on the
+    card or the host.  Returns the directory on rank 0, else None."""
+    me = dist.get_rank(ctx.world_group)
+    flat = flatten_paths(tree)
+    device = next(t.device for t in flat.values()
+                  if isinstance(t, torch.Tensor))
+    coords = _coords(ctx, device)
+    final = _step_dir(base, step)
+    tmp = f"{final}.tmp.{os.getpid()}"
+    zf, leaves = None, {}
+    if me == 0:
+        os.makedirs(base, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        zf = zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
+                             zipfile.ZIP_STORED, allowZip64=True)
+    for key, t in flat.items():
+        spec = tuple(placements.get(key, ()))
+        if not any(ax is not None for ax in spec):
+            if me == 0:
+                arr, dtype = _storage(t)
+                with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+                leaves[key] = {"shape": list(arr.shape), "dtype": dtype,
+                               "crc32": _crc(arr)}
+            continue
+        whole = _whole_shape(t, spec, ctx)
+        if me == 0:
+            np_dtype, dtype = _np_dtype(t)
+            npy = os.path.join(tmp, "leaf.npy")
+            mm = np.lib.format.open_memmap(npy, mode="w+", dtype=np_dtype,
+                                           shape=whole)
+        for r, (dr, mr) in enumerate(coords):
+            if not _first_holder(spec, ctx, dr, mr):
+                continue
+            if me == 0:
+                blk = t
+                if r != 0:
+                    blk = torch.empty(t.shape, dtype=t.dtype, device=device)
+                    dist.recv(blk, src=dist.get_global_rank(
+                        ctx.world_group, r), group=ctx.world_group)
+                mm[_block_index(whole, spec, ctx, dr, mr)] = _storage(blk)[0]
+                del blk
+            elif me == r:
+                dist.send(t.contiguous(), dst=dist.get_global_rank(
+                    ctx.world_group, 0), group=ctx.world_group)
+        if me == 0:
+            mm.flush()
+            leaves[key] = {"shape": list(whole), "dtype": dtype,
+                           "crc32": _crc_chunked(mm)}
+            del mm
+            zf.write(npy, arcname=key + ".npy")
+            os.remove(npy)
+    if me != 0:
+        return None
+    zf.close()
+    manifest = {"step": step, "meta": meta or {},
+                "process_count": process_count(), "leaves": leaves}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def _npz_leaf(path: str, key: str):
+    """Leaf ``key`` of the npz at ``path`` as a read-only memory map (an
+    uncompressed member, as ``np.savez`` and :func:`save_checkpoint`
+    write them), else read whole."""
+    name = key + ".npy"
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(name)
+        if info.compress_type != zipfile.ZIP_STORED:
+            with zf.open(name) as f:
+                return np.lib.format.read_array(f, allow_pickle=False)
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)
+        n_name, n_extra = struct.unpack("<HH", head[26:30])
+        f.seek(info.header_offset + 30 + n_name + n_extra)
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if math.prod(shape) == 0:
+        return np.empty(shape, dtype)
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                     shape=shape, order="F" if fortran else "C")
+
+
+def restore_with_placements(base: str, template, placements: dict, ctx,
+                            device, step: int | None = None):
+    """Elastic restore: this rank's block of each whole leaf under
+    ``placements`` ({flattened key: placement}) on ``ctx``'s mesh,
+    whatever mesh wrote them, read leaf by leaf from a memory map of the
+    checkpoint (each leaf's CRC verified in chunks), so the rank holds
+    only its blocks; ``template``: the rank's tree (its blocks, whose
+    dtypes the leaves take).  A whole shape that differs raises.  ->
+    (step, tree of blocks on ``device``, meta)."""
+    step = latest_step(base) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {base}")
+    d = _step_dir(base, step)
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    path = os.path.join(d, "arrays.npz")
+    placed = {}
+    for k, t in flatten_paths(template).items():
+        info = manifest["leaves"][k]
+        arr = _npz_leaf(path, k)
+        if _crc_chunked(arr) != info["crc32"]:
+            raise IOError(f"checkpoint corruption: CRC mismatch on {k}")
+        spec = tuple(placements.get(k, ()))
+        whole = _whole_shape(t, spec, ctx)
+        if tuple(arr.shape) != whole:
+            raise ValueError(f"checkpoint leaf {k}: shape {tuple(arr.shape)}"
+                             f", expected {whole}")
+        blk = np.array(arr[_block_index(whole, spec, ctx, ctx.data_rank,
+                                        ctx.model_rank)])
+        del arr
+        placed[k] = _tensor(blk, info["dtype"]).to(device=device,
+                                                   dtype=t.dtype, copy=True)
+    return step, _unflatten_like(template, placed), manifest["meta"]
 
 
 def gc_checkpoints(base: str, keep_n: int):

@@ -22,25 +22,35 @@ reference's keys where they still mean something:
 
   flops_analytic_global      the reference's definition: the logical
                              program at global shapes -- the rank's
-                             non-MoE work times the data ranks that split
-                             the batch, its MoE work times the mesh size
-                             (the reference's shard_map body), the folded
-                             attention kernel counted as the reference's
-                             chunked attention (every query against every
-                             key);
+                             replicated work times the data ranks that
+                             split the batch, its model-split work
+                             (``sharding.split_work``) times those and
+                             the model axis, its MoE work times the mesh
+                             size (the reference's shard_map body), the
+                             folded attention kernel counted as the
+                             reference's chunked attention (every query
+                             against every key);
   flops_analytic_per_device  that over the devices;
-  flops_executed_per_device  the rank's own program as it runs today:
-                             non-expert work replicated over the model
-                             axis, the attention kernel's causal blocks;
+  flops_executed_per_device  the rank's own program: the placed model's
+                             blocks of every layer (work the rules cannot
+                             split -- heads cut by the rules' columns,
+                             the RWKV token shift -- replicated over the
+                             model axis), the attention kernel's causal
+                             blocks;
   bytes_analytic_per_device  the reference's analytic bytes (counted ops'
                              operands and results, plus the global inputs
                              and outputs) over the devices;
   collectives                bytes and calls by op, forward and backward;
   memory                     argument_gb / output_gb under the rules'
-                             placements, and *_runtime_gb: what the port's
-                             rank holds today (non-expert parameters
-                             replicated, experts split); temp_gb null,
-                             with the reason;
+                             placements, and *_runtime_gb: what the
+                             port's placed rank holds (its parameter
+                             blocks, optimizer state and decode states;
+                             the serving logits gathered over the vocab);
+                             temp_gb null, with the reason;
+  checkpoint_extra_gb        (train cells) the device bytes a placed
+                             rank adds while it saves a checkpoint: the
+                             stacked copy of its parameter blocks and
+                             the largest block in transit;
   trace_s                    in place of lower_s / compile_s.
 
 The CLI is the reference's but for ``--save-hlo``: eager PyTorch compiles
@@ -134,14 +144,14 @@ def _local_batch(batch, shards, ctx):
 
 
 def _model(cfg, ctx):
-    """(the rank's meta model: experts split, the rules' placements of the
-    whole model, its parameters' global bytes)."""
+    """(the rank's meta model placed under the rules, their placements,
+    the rules' bytes of a rank, the parameters' global bytes)."""
     model, placements = speclib.params_specs(cfg, ctx)
     params = dict(model.named_parameters())
     rules_bytes = speclib.placement_bytes(params, placements, ctx)
     global_bytes = _bytes(params.values())
-    model.shard_experts(ctx)
-    return model, rules_bytes, global_bytes
+    shlib.place_(model, ctx, placements)
+    return model, placements, rules_bytes, global_bytes
 
 
 def _moe_modules(model):
@@ -169,7 +179,7 @@ def build_train(cfg, ctx, shape, opt_name) -> Cell:
     B, S = shape.global_batch, shape.seq_len
     micro_b, n_acc = _auto_microbatch(cfg, ctx, B, S)
     tcfg = TrainConfig(opt=OptConfig(name=opt_name), microbatch=micro_b)
-    model, p_rules, p_global = _model(cfg, ctx)
+    model, p_sh, p_rules, p_global = _model(cfg, ctx)
     model.trainable()
     full = lm.LM(cfg, device=META)
     o_full, o_place = speclib.opt_specs(cfg, ctx, tcfg.opt, full)
@@ -179,13 +189,19 @@ def build_train(cfg, ctx, shape, opt_name) -> Cell:
     opt_state = init_opt(tcfg.opt, convert.stacks(model))
     batch, b_sh = speclib.batch_specs(cfg, B, S, ctx, with_labels=True)
     local = _local_batch(batch, b_sh, ctx)
-    step = make_train_step(cfg, tcfg, ctx)
+    step = make_train_step(cfg, tcfg, ctx, param_shardings=p_sh)
 
     def run():
         return step(model, opt_state, None, local, 0)
 
     p_run = _bytes(model.parameters())
     o_run = _bytes(_flat(opt_state).values())
+    # a placed save (ckpt.save_with_placements) adds on a rank's device the
+    # stacked copy of its parameter blocks and one block in transit
+    stacks = convert.stacks(model)
+    ckpt_extra = _bytes(v for k, v in stacks.items()
+                        if convert.is_stacked(k)) + max(
+        _bytes([t]) for t in [*stacks.values(), *_flat(opt_state).values()])
     return Cell(run=run, sharded=_moe_modules(model),
                 data_size=ctx.n_data if ctx.batch_sharded(B) else 1,
                 rules={"params": p_rules, "opt": o_rules,
@@ -197,7 +213,8 @@ def build_train(cfg, ctx, shape, opt_name) -> Cell:
                 global_io_bytes=2 * (p_global + _bytes(o_flat.values()))
                 + _bytes(batch.values()),
                 extra={"microbatch_global": micro_b,
-                       "grad_accum_steps": n_acc})
+                       "grad_accum_steps": n_acc,
+                       "checkpoint_extra_gb": ckpt_extra / 1e9})
 
 
 def _flat(tree, prefix=""):
@@ -214,14 +231,15 @@ def _states_bytes(cfg, B, S, ctx, local_B):
     sh = speclib.state_shardings(cfg, states, ctx, B)
     rules = sum(speclib.placement_bytes(st, s, ctx)
                 for st, s in zip(states, sh))
-    run = _bytes(t for st in lm.state_init(cfg, local_B, S, device=META)
+    run = _bytes(t for st in lm.state_init(cfg, local_B, S, device=META,
+                                           ctx=ctx)
                  for t in st.values())
     return rules, run, _bytes(t for st in states for t in st.values())
 
 
 def build_prefill(cfg, ctx, shape) -> Cell:
     B, S = shape.global_batch, shape.seq_len
-    model, p_rules, p_global = _model(cfg, ctx)
+    model, _, p_rules, p_global = _model(cfg, ctx)
     batch, b_sh = speclib.batch_specs(cfg, B, S, ctx, with_labels=False)
     local = _local_batch(batch, b_sh, ctx)
     bl = B // ctx.n_data if ctx.batch_sharded(B) else B
@@ -250,12 +268,12 @@ def build_prefill(cfg, ctx, shape) -> Cell:
 
 def build_decode(cfg, ctx, shape) -> Cell:
     B, S = shape.global_batch, shape.seq_len
-    model, p_rules, p_global = _model(cfg, ctx)
+    model, _, p_rules, p_global = _model(cfg, ctx)
     (batch, states, pos), (b_sh, st_sh, _) = speclib.decode_specs(cfg, B, S,
                                                                   ctx)
     local = _local_batch(batch, b_sh, ctx)
     bl = B // ctx.n_data if ctx.batch_sharded(B) else B
-    st_local = lm.state_init(cfg, bl, S, device=META)
+    st_local = lm.state_init(cfg, bl, S, device=META, ctx=ctx)
     st_rules = sum(speclib.placement_bytes(st, s, ctx)
                    for st, s in zip(states, st_sh))
     st_run = _bytes(t for st in st_local for t in st.values())
@@ -406,22 +424,23 @@ def run_cell(arch, shape_name, multi_pod, opt_override=None, remat=None,
                  "opt": opt_name if shape.kind == "train" else None}
     shlib.reset_collectives()
     t0 = time.perf_counter()
-    with Counter(cell.sharded) as c:
+    whole = cell.extra.get("whole_program_sharded", False)
+    with Counter(cell.sharded, split=not whole) as c:
         cell.run()
     trace_s = time.perf_counter() - t0
-    whole = cell.extra.get("whole_program_sharded", False)
     if whole:
         flops_global = devices * (c.flops + c.logical_extra)
         bytes_global = devices * c.bytes
     else:
-        flops_global = c.global_flops(devices, cell.data_size)
-        bytes_global = c.global_bytes(devices, cell.data_size)
+        flops_global = c.global_flops(devices, cell.data_size, ctx.n_model)
+        bytes_global = c.global_bytes(devices, cell.data_size, ctx.n_model)
     bytes_global += cell.global_io_bytes
     res = {
         "flops_analytic_global": float(flops_global),
         "flops_analytic_per_device": float(flops_global) / devices,
         "flops_executed_per_device": float(c.flops),
         "flops_moe_per_device": float(c.sharded_flops),
+        "flops_split_per_device": float(c.split_flops),
         "bytes_analytic_per_device": float(bytes_global) / devices,
         "flops_by_op_per_device": c.by_op,
         "collectives": shlib.collective_summary(),

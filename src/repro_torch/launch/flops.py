@@ -27,7 +27,10 @@ Works on meta tensors (nothing is allocated, nothing runs).  Ops inside
 the ``sharded`` modules -- their forward, and the backward of every
 autograd node their forward created (tagged through a
 ``TorchFunctionMode``) -- are tallied apart, so that a caller can scale
-them by the mesh size like the reference's ``shard_map`` bodies.
+them by the mesh size like the reference's ``shard_map`` bodies; so are
+the ops a placed model runs under
+:func:`repro_torch.models.sharding.split_work` (a rank's block of a
+model-split dimension), which the caller scales by the model axis.
 A stand-in for a kernel that cannot run on meta tensors adds its own
 count with :meth:`Counter.note`.
 """
@@ -39,6 +42,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from repro_torch.models.sharding import in_split_work
 
 __all__ = ["Counter", "analytic_flops", "analytic_bytes", "active"]
 
@@ -111,7 +116,9 @@ class _Tagger(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self.counter._depth:
+        tag = "repro_sharded" if self.counter._depth else \
+            "repro_split" if in_split_work() else None
+        if tag is not None:
             stop = set(_grad_fns((args, kwargs)))
             todo, seen = _grad_fns(out), set()
             while todo:
@@ -119,7 +126,7 @@ class _Tagger(TorchFunctionMode):
                 if node is None or node in stop or node in seen:
                     continue
                 seen.add(node)
-                node.metadata["repro_sharded"] = True
+                node.metadata[tag] = True
                 todo.extend(n for n, _ in node.next_functions)
         return out
 
@@ -128,41 +135,59 @@ class Counter(TorchDispatchMode):
     """Counts FLOPs and bytes of every op run while it is entered.
 
     ``flops`` / ``bytes``: everything executed; ``sharded_flops`` /
-    ``sharded_bytes``: the part inside ``sharded`` modules.
-    ``logical_extra``: FLOPs a stand-in adds to the logical count beyond
-    what it executes (:meth:`note`)."""
+    ``sharded_bytes``: the part inside ``sharded`` modules;
+    ``split_flops`` / ``split_bytes``: the part under
+    :func:`~repro_torch.models.sharding.split_work`.  ``logical_extra`` /
+    ``split_logical_extra``: FLOPs a stand-in adds to the logical count
+    beyond what it executes (:meth:`note`), outside and inside split
+    work.  ``split`` switches the tagging on for a model with no
+    ``sharded`` module (it costs a Python call an op)."""
 
-    def __init__(self, sharded=()):
+    def __init__(self, sharded=(), split=False):
         super().__init__()
         self.flops = self.bytes = 0
         self.sharded_flops = self.sharded_bytes = 0
-        self.logical_extra = 0
+        self.split_flops = self.split_bytes = 0
+        self.logical_extra = self.split_logical_extra = 0
+        self._tag = bool(sharded) or split
         self.by_op: dict = {}
         self._depth = 0
         self._wrapped = []
         self._sharded = list(sharded)
         self._tagger = _Tagger(self)
 
-    def _in_region(self) -> bool:
+    def _region(self) -> str | None:
+        """"moe", "split" or None for the op being counted."""
         if self._depth:
-            return True
+            return "moe"
+        if in_split_work():
+            return "split"
         if torch.is_grad_enabled():
             # a forward op -- also a checkpoint's recompute, which runs
             # inside the backward of whatever node unpacked its tensors
-            return False
+            return None
         node = torch._C._current_autograd_node()
-        return node is not None and node.metadata.get("repro_sharded",
-                                                      False)
+        if node is None:
+            return None
+        if node.metadata.get("repro_sharded", False):
+            return "moe"
+        return "split" if node.metadata.get("repro_split", False) else None
 
     def _add(self, name, flops, nbytes, logical=None):
-        region = self._in_region()
+        region = self._region()
         self.flops += flops
         self.bytes += nbytes
-        if region:
+        if region == "moe":
             self.sharded_flops += flops
             self.sharded_bytes += nbytes
+        elif region == "split":
+            self.split_flops += flops
+            self.split_bytes += nbytes
         if logical is not None:
-            self.logical_extra += logical - flops
+            if region == "split":
+                self.split_logical_extra += logical - flops
+            else:
+                self.logical_extra += logical - flops
         self.by_op[name] = self.by_op.get(name, 0) + flops
 
     def note(self, name: str, flops: int, nbytes: int,
@@ -200,7 +225,7 @@ class Counter(TorchDispatchMode):
         for m in self._sharded:
             m.forward = self._wrap(m.forward)
             self._wrapped.append(m)
-        if self._sharded:       # the tagger costs a Python call an op
+        if self._tag:           # the tagger costs a Python call an op
             self._tagger.__enter__()
         _ACTIVE.append(self)
         return super().__enter__()
@@ -208,24 +233,30 @@ class Counter(TorchDispatchMode):
     def __exit__(self, *exc):
         out = super().__exit__(*exc)
         _ACTIVE.pop()
-        if self._sharded:
+        if self._tag:
             self._tagger.__exit__(*exc)
         for m in self._wrapped:
             del m.forward
         self._wrapped.clear()
         return out
 
-    def global_flops(self, mesh_size: int = 1, data_size: int = 1) -> int:
-        """The reference's global count: the rank's unsharded work times
-        ``data_size`` (the ranks that split the batch), its sharded work
-        times ``mesh_size``, plus the stand-ins' logical extra."""
-        return (data_size * (self.flops - self.sharded_flops + self
-                             .logical_extra)
-                + mesh_size * self.sharded_flops)
+    def global_flops(self, mesh_size: int = 1, data_size: int = 1,
+                     n_model: int = 1) -> int:
+        """The reference's global count: the rank's replicated work times
+        ``data_size`` (the ranks that split the batch), its split work
+        times ``data_size * n_model``, its sharded modules' work times
+        ``mesh_size``, with the stand-ins' logical extra."""
+        plain = self.flops - self.sharded_flops - self.split_flops \
+            + self.logical_extra
+        split = self.split_flops + self.split_logical_extra
+        return data_size * (plain + n_model * split) \
+            + mesh_size * self.sharded_flops
 
-    def global_bytes(self, mesh_size: int = 1, data_size: int = 1) -> int:
-        return (data_size * (self.bytes - self.sharded_bytes)
-                + mesh_size * self.sharded_bytes)
+    def global_bytes(self, mesh_size: int = 1, data_size: int = 1,
+                     n_model: int = 1) -> int:
+        plain = self.bytes - self.sharded_bytes - self.split_bytes
+        return data_size * (plain + n_model * self.split_bytes) \
+            + mesh_size * self.sharded_bytes
 
 
 def analytic_flops(fn, *args, mesh_size: int = 1, data_size: int = 1,

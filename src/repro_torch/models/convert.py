@@ -33,10 +33,11 @@ import torch
 from repro_torch.ckpt.checkpoint import flatten_paths
 from repro_torch.core.batched import resolve_device
 
+from . import sharding
 from .lm import LM
 
-__all__ = ["params_from_numpy", "leaf_groups", "is_stacked", "stack",
-           "write_back", "stacks", "tree_to_numpy",
+__all__ = ["params_from_numpy", "leaf_groups", "leaf_shards", "is_stacked",
+           "stack", "write_back", "stacks", "tree_to_numpy",
            "opt_state_from_numpy"]
 
 
@@ -49,8 +50,10 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _copy(param, a, where):
+def _copy(param, a, where, spec=(), ctx=None):
     t = _tensor(a)
+    if ctx is not None:
+        t = sharding.block_of(t, spec, ctx)
     if tuple(t.shape) != tuple(param.shape) or t.dtype != param.dtype:
         raise ValueError(f"{where}: expected {param.dtype} "
                          f"{tuple(param.shape)}, got {t.dtype} "
@@ -70,16 +73,26 @@ def _leaves(tree, prefix=""):
             yield path, val
 
 
-def params_from_numpy(cfg, tree, device=None) -> LM:
+def params_from_numpy(cfg, tree, device=None, ctx=None) -> LM:
     """The model of ``cfg`` holding the reference's weights ``tree``
-    (numpy leaves) on ``device`` (None: the card)."""
-    model = LM(cfg, device=resolve_device(device)).eval()
+    (numpy leaves) on ``device`` (None: the card); with ``ctx`` placed,
+    each parameter the rank's block of its leaf."""
+    device = resolve_device(device)
+    if ctx is None:
+        model = LM(cfg, device=device).eval()
+    else:
+        model = sharding.place_(LM(cfg, device="meta"), ctx)
+        model = model.to_empty(device=device).eval()
     params = dict(model.named_parameters())
-    _copy(model.embed, tree["embed"], "embed")
+    specs = sharding.placements_of(model)
+
+    def copy(name, a, where):
+        _copy(params[name], a, where, specs[name], ctx)
+    copy("embed", tree["embed"], "embed")
     if not cfg.tie_embeddings:
-        _copy(model.head, tree["head"], "head")
+        copy("head", tree["head"], "head")
     for name, a in tree["final_norm"].items():
-        _copy(params[f"final_norm.{name}"], a, f"final_norm.{name}")
+        copy(f"final_norm.{name}", a, f"final_norm.{name}")
     pat = cfg.block_pattern
     G = cfg.num_layers // len(pat)
     layer_trees = []
@@ -97,7 +110,7 @@ def params_from_numpy(cfg, tree, device=None) -> LM:
             if name not in want:
                 raise ValueError(f"layer {i}: the tree's leaf {path} has no "
                                  f"parameter in the model")
-            _copy(params[name], a, f"layer {i} {path}")
+            copy(name, a, f"layer {i} {path}")
             want.discard(name)
         if want:
             raise ValueError(f"layer {i}: no leaf for {sorted(want)}")
@@ -171,6 +184,23 @@ def leaf_groups(model: LM) -> dict:
     return out
 
 
+def leaf_shards(model, ctx, placements=None) -> sharding.LeafShards:
+    """Where each of the model's leaves (:func:`leaf_groups`) lives on
+    ``ctx``'s mesh: its parameters' placement in ``placements`` ({name:
+    placement}; default the ones recorded on the model,
+    :func:`~repro_torch.models.sharding.placements_of`), a leading None
+    for a stacked leaf."""
+    if placements is None:
+        placements = sharding.placements_of(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    specs = {}
+    for path, ps in leaf_groups(model).items():
+        spec = tuple(placements.get(names[id(ps[0])], ()))
+        specs[path] = (None,) + spec if spec and is_stacked(path) \
+            else spec
+    return sharding.LeafShards(ctx, specs)
+
+
 def _numpy(t: torch.Tensor):
     """A host numpy array of ``t``; bfloat16 as float32 (numpy has no
     bfloat16 without the extension)."""
@@ -206,11 +236,18 @@ def stacks(model: LM, grads: bool = False) -> dict:
     return out
 
 
-def tree_to_numpy(model: LM, grads: bool = False):
+def tree_to_numpy(model: LM, grads: bool = False, ctx=None):
     """The reference's parameter tree with numpy leaves (bfloat16 as
     float32), stacked as ``repro.models.lm.init`` stacks it: of the
-    parameters, or of their gradients (:func:`stacks`)."""
-    return _nest({k: _numpy(v) for k, v in stacks(model, grads).items()})
+    parameters, or of their gradients (:func:`stacks`).  With ``ctx`` a
+    placed model's blocks are gathered into whole leaves (every rank
+    calls it)."""
+    flat = stacks(model, grads)
+    if ctx is not None:
+        specs = leaf_shards(model, ctx).specs
+        flat = {k: sharding.gather_whole(v, specs[k], ctx)
+                for k, v in flat.items()}
+    return _nest({k: _numpy(v) for k, v in flat.items()})
 
 
 def opt_state_from_numpy(cfg, model: LM, state) -> dict:

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import sharding
+
 __all__ = ["DTYPES", "dtype_of", "rmsnorm", "layernorm", "RMSNorm",
            "LayerNorm", "make_norm", "dense_init", "embed_init", "rope",
            "mrope", "GATED", "PLAIN", "mlp_apply", "MLP", "weight",
@@ -192,6 +194,15 @@ def mlp_apply(x, wi, wo, kind):
 
 
 class MLP(nn.Module):
+    """wi (d, ff, or 2 ff gated: [gate | up]), wo (ff, d).  Placed
+    (:func:`repro_torch.models.sharding.place_`, with ``ctx``), wi is
+    split by columns and wo by rows over the model group: the rank's
+    block of the ff units, one all-reduce of wo's partial sums.  A gated
+    wi's column blocks do not pair gate and up units (rank r of n holds
+    columns [2 r ff / n, 2 (r + 1) ff / n)), so its block of h is
+    all-gathered over the model group and the rank takes the gate and up
+    units of its wo rows; the gather's backward reduce-scatters."""
+
     def __init__(self, d, ff, kind, dtype, generator=None, device=None):
         super().__init__()
         self.kind = kind
@@ -199,8 +210,35 @@ class MLP(nn.Module):
         self.wi = weight(generator, d, wi_out, dtype, device)
         self.wo = weight(generator, ff, d, dtype, device)
 
-    def forward(self, x):
-        return mlp_apply(x, self.wi, self.wo, self.kind)
+    def forward(self, x, ctx=None, w=None):
+        """x (..., d) -> (..., d); ``w``: the weights whole over the data
+        axes (default the parameters)."""
+        w = w if w is not None else {"wi": self.wi, "wo": self.wo}
+        if ctx is None or not sharding.split_on(self, "wi", -1):
+            return mlp_apply(x, w["wi"], w["wo"], self.kind)
+        n, r = ctx.n_model, ctx.model_rank
+        row = sharding.split_on(self, "wo", 0)
+        with sharding.split_work():
+            h = sharding.enter_model(x, ctx) @ w["wi"]
+        if not row:          # wo whole: every rank takes every unit
+            h = sharding.all_gather(h, ctx, -1)
+        if self.kind in GATED:
+            if row and n > 1:
+                h = sharding.all_gather(h, ctx, -1, partial=True)
+                ff = h.shape[-1] // 2
+                q = ff // n
+                g, u = h[..., r * q:(r + 1) * q], \
+                    h[..., ff + r * q:ff + (r + 1) * q]
+            else:
+                g, u = torch.chunk(h, 2, dim=-1)
+            h = GATED[self.kind](g.float()).to(x.dtype) * u
+        else:
+            h = PLAIN[self.kind](h.float()).to(x.dtype)
+        if not row:
+            return h @ w["wo"]
+        with sharding.split_work():
+            y = h @ w["wo"]
+        return sharding.all_reduce(y, ctx, "model")
 
 
 def weight(generator, d_in, d_out, dtype, device=None, scale=None):

@@ -13,7 +13,7 @@ boolean mask has no meta-tensor shape).  Router math is float32; the
 Switch load-balance aux loss is returned alongside.
 
 The sharded path (``ctx`` given; the model rank holds E / n_model
-experts, :meth:`MoE.shard_`) runs per rank what the reference's
+experts, placed by :func:`repro_torch.models.sharding.place_`) runs per rank what the reference's
 ``shard_map`` body runs:
 
   1. sequence parallelism when S % n_model == 0 and S >= n_model > 1: the
@@ -159,50 +159,34 @@ class MoE(nn.Module):
             return torch.empty(shape, dtype=dtype, device=device)
         return layers.normal(generator, shape, scale, dtype, device)
 
-    @torch.no_grad()
-    def shard_(self, ctx) -> "MoE":
-        """Keep only the model rank's E / n_model experts (rows [r E/n,
-        (r + 1) E/n) of wi and wo): expert parallelism's placement.
-        Returns the module."""
-        E, n = self.cfg.moe.num_experts, ctx.n_model
-        if E % n:
-            raise ValueError(f"experts {E} % model axis {n}")
-        if self.wi.shape[0] != E:
-            raise ValueError(f"holds {self.wi.shape[0]} experts, not all {E}")
-        r, el = ctx.model_rank, E // n
-        for name in ("wi", "wo"):
-            w = getattr(self, name)
-            part = w[r * el:(r + 1) * el].clone()
-            setattr(self, name, nn.Parameter(part,
-                                             requires_grad=w.requires_grad))
-        return self
-
-    def forward(self, x, ctx=None):
+    def forward(self, x, ctx=None, w=None):
         """x (B, S, d) -> (out (B, S, d), aux loss).  With ``ctx`` the
-        sharded path: x is this rank's rows, the output too."""
+        sharded path: x is this rank's rows, the output too.  ``w``: the
+        weights whole over the data axes (default the parameters)."""
+        w = dict(self.named_parameters()) if w is None else w
         if ctx is not None:
-            return self._sharded(x, ctx)
+            return self._sharded(x, ctx, w)
         cfg = self.cfg
         B, S, d = x.shape
-        out, aux = dispatch_combine(self.router, self.wi, self.wo,
+        out, aux = dispatch_combine(w["router"], w["wi"], w["wo"],
                                     x.reshape(B * S, d), cfg.moe,
                                     cfg.mlp_type)
         out = out.reshape(B, S, d)
         if cfg.moe.num_shared_experts:
-            out = out + self.shared(x)
+            out = out + self.shared(x, None, sharding.sub_weights(w, "shared"))
         return out, aux
 
-    def _sharded(self, x, ctx):
+    def _sharded(self, x, ctx, w):
         cfg, m = self.cfg, self.cfg.moe
         nm = ctx.n_model
         if m.num_experts % nm:
             raise ValueError(f"experts {m.num_experts} % model axis {nm}")
         el = m.num_experts // nm
-        if self.wi.shape[0] != el:
+        if w["wi"].shape[0] != el:
             raise ValueError(
                 f"a model rank of {nm} holds {el} experts, this module "
-                f"{self.wi.shape[0]}: shard the model first "
-                f"(LM.shard_experts / MoE.shard_)")
+                f"{self.wi.shape[0]}: place the model first "
+                f"(sharding.place_)")
         B, S, d = x.shape
         use_sp = S % nm == 0 and S >= nm and nm > 1
         x = sharding.enter_model(x, ctx)
@@ -212,7 +196,7 @@ class MoE(nn.Module):
         else:
             xs = x
         bl, sl, _ = xs.shape
-        wi, wo = self.wi, self.wo
+        wi, wo = w["wi"], w["wo"]
 
         def cross_expert(buf):
             # (E, C, d) -> the rank's experts with every rank's tokens
@@ -225,12 +209,12 @@ class MoE(nn.Module):
                 .reshape(nm * el, C, d)
             return sharding.all_to_all(send, ctx)
 
-        out, aux = dispatch_combine(self.router, wi, wo,
+        out, aux = dispatch_combine(w["router"], wi, wo,
                                     xs.reshape(bl * sl, d), m, cfg.mlp_type,
                                     cross_expert_fn=cross_expert)
         out = out.reshape(bl, sl, d)
         if m.num_shared_experts:
-            out = out + self.shared(xs)
+            out = out + self.shared(xs, ctx, sharding.sub_weights(w, "shared"))
         if use_sp:
             out = sharding.all_gather(out, ctx, dim=1)
         elif nm > 1:

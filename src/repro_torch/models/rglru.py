@@ -17,6 +17,15 @@ log-depth doubling scan over the (a, b) pairs in torch ops (its sums are
 grouped otherwise than XLA's, equal within rounding).  Training
 (:meth:`RGLRU.forward`) runs the prefill's math without its state;
 decode carries (h, conv tail) state.
+
+Placed (:func:`repro_torch.models.sharding.place_`, with ``ctx``),
+w_gate / w_branch are split by columns and w_out by rows over the model
+group, so a rank computes the recurrence of its d / n channels and its
+state holds them (``launch/specs.py`` ``state_shardings``).  The gates
+read every channel of the branch: its blocks are all-gathered over the
+model group, and each rank multiplies them by its columns of w_a / w_x
+(the replicated conv, biases and Lambda likewise taken at its channels,
+their gradients summed over the model group).
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import layers
+from . import layers, sharding
 
 __all__ = ["C_GATE", "CONV_W", "RGLRU", "linear_scan", "state_init"]
 
@@ -84,59 +93,108 @@ class RGLRU(nn.Module):
         self.lam = layers.param(lam)
         self.w_out = layers.weight(generator, d, d, dtype, device)
 
-    def _gates(self, u):
-        """Per-step gates (float32).  u: (..., d) branch activations."""
-        uf = u.float()
-        r = torch.sigmoid(uf @ self.w_a.float() + self.b_a)
-        i = torch.sigmoid(uf @ self.w_x.float() + self.b_x)
-        a = torch.exp(-C_GATE * F.softplus(self.lam) * r)
+    _NAMES = ("w_gate", "w_branch", "conv", "w_a", "b_a", "w_x", "b_x",
+              "lam", "w_out")
+
+    def _tp(self, ctx):
+        """(ctx, the rank's channels) when placed and split, else None."""
+        if ctx is None or not sharding.split_on(self, "w_gate", -1):
+            return None
+        dl = self.w_gate.shape[-1]
+        return ctx, slice(ctx.model_rank * dl, (ctx.model_rank + 1) * dl)
+
+    def _weights(self, w, tp):
+        w = dict(w) if w is not None else {n: getattr(self, n)
+                                           for n in self._NAMES}
+        if tp is not None:   # replicated, taken at the rank's channels
+            ctx, sl = tp
+            for n in ("conv", "w_a", "w_x"):
+                w[n] = sharding.enter_model(w[n], ctx)[:, sl]
+            for n in ("b_a", "b_x", "lam"):
+                w[n] = sharding.enter_model(w[n], ctx)[sl]
+        return w
+
+    def _gates(self, u, w=None, tp=None):
+        """Per-step gates (float32) of the (rank's) channels.  u: (..., d
+        or d / n) branch activations."""
+        w = self._weights(w, None) if w is None else w
+        ui = u.float() if tp is None else \
+            sharding.all_gather(u, tp[0], -1, partial=True).float()
+        with sharding.split_work(tp is not None):
+            r = torch.sigmoid(ui @ w["w_a"].float() + w["b_a"])
+            i = torch.sigmoid(ui @ w["w_x"].float() + w["b_x"])
+        a = torch.exp(-C_GATE * F.softplus(w["lam"]) * r)
+        # the rank's channels of the gathered branch, taken here so that
+        # the backward adds the three cotangents of ui in the unsplit order
+        uf = ui if tp is None else ui[..., tp[1]]
         gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
         return a, gated_in
 
-    def _causal_conv(self, u):
+    def _causal_conv(self, u, conv=None):
         """Width-4 causal depthwise temporal conv.  u: (B, S, d)."""
-        w = self.conv.float()
+        w = (self.conv if conv is None else conv).float()
         pad = F.pad(u.float(), (0, 0, CONV_W - 1, 0))
         S = u.shape[1]
         out = sum(pad[:, i:i + S] * w[i] for i in range(CONV_W))
         return out.to(u.dtype)
 
-    def _gate(self, x):
-        return F.gelu(x.float() @ self.w_gate.float(), approximate="tanh")
+    def _in(self, x, w, tp):
+        """(gate, branch inputs) of the (rank's) channels."""
+        xs = x if tp is None else sharding.enter_model(x, tp[0])
+        with sharding.split_work(tp is not None):
+            gate = F.gelu(xs.float() @ w["w_gate"].float(),
+                          approximate="tanh")
+            ub = xs @ w["w_branch"]
+        return gate, ub
 
-    def _full_sequence(self, x):
+    def _out(self, y, w, tp):
+        with sharding.split_work(tp is not None):
+            out = y @ w["w_out"]
+        return out if tp is None else sharding.all_reduce(out, tp[0],
+                                                          "model")
+
+    def _full_sequence(self, x, ctx=None, w=None):
         """The full-sequence block (the reference's ``rglru_apply``):
-        (out (B, S, d), h (B, S, d) float32, branch inputs ub)."""
-        gate = self._gate(x)
-        ub = x @ self.w_branch
-        a, gin = self._gates(self._causal_conv(ub))
+        (out (B, S, d), h (B, S, d or d / n) float32, branch inputs ub)."""
+        tp = self._tp(ctx)
+        w = self._weights(w, tp)
+        gate, ub = self._in(x, w, tp)
+        a, gin = self._gates(self._causal_conv(ub, w["conv"]), w, tp)
         h = linear_scan(a, gin)
-        return (gate * h).to(x.dtype) @ self.w_out, h, ub
+        return self._out((gate * h).to(x.dtype), w, tp), h, ub
 
-    def forward(self, x):
-        """Training: full sequence x (B, S, d) -> out (B, S, d)."""
-        return self._full_sequence(x)[0]
+    def forward(self, x, ctx=None, w=None):
+        """Training: full sequence x (B, S, d) -> out (B, S, d).  ``w``:
+        the weights whole over the data axes (default the parameters)."""
+        return self._full_sequence(x, ctx, w)[0]
 
-    def prefill(self, x):
+    def prefill(self, x, ctx=None, w=None):
         """Full sequence x (B, S, d) -> (out (B, S, d), decode state
-        {"h": (B, d) float32, "conv": the last CONV_W - 1 branch inputs})."""
-        out, h, ub = self._full_sequence(x)
+        {"h": (B, d) float32, "conv": the last CONV_W - 1 branch inputs},
+        placed: of the rank's channels)."""
+        out, h, ub = self._full_sequence(x, ctx, w)
         return out, {"h": h[:, -1], "conv": ub[:, -(CONV_W - 1):]}
 
-    def decode_step(self, x1, state):
+    def decode_step(self, x1, state, ctx=None, w=None):
         """One token x1 (B, 1, d) -> (out (B, 1, d), new state)."""
-        gate = self._gate(x1)                                   # (B, 1, d)
-        ub = x1 @ self.w_branch                                 # (B, 1, d)
+        tp = self._tp(ctx)
+        w = self._weights(w, tp)
+        gate, ub = self._in(x1, w, tp)                          # (B, 1, d)
         hist = torch.cat([state["conv"], ub], dim=1)            # (B, 4, d)
-        u = torch.einsum("bwd,wd->bd", hist.float(), self.conv.float())
-        a, gin = self._gates(u[:, None, :].to(x1.dtype))        # (B, 1, d)
+        with sharding.split_work(tp is not None):
+            u = torch.einsum("bwd,wd->bd", hist.float(), w["conv"].float())
+        a, gin = self._gates(u[:, None, :].to(x1.dtype), w, tp)  # (B, 1, d)
         h = a[:, 0] * state["h"] + gin[:, 0]
         y = (gate[:, 0] * h).to(x1.dtype)[:, None, :]
-        return y @ self.w_out, {"h": h, "conv": hist[:, 1:]}
+        return self._out(y, w, tp), {"h": h, "conv": hist[:, 1:]}
 
 
-def state_init(cfg, batch, dtype, device=None):
+def state_init(cfg, batch, dtype, device=None, n_model=1):
+    """Zero decode state; a model rank's d / n_model channels when
+    n_model divides d (the placed layout)."""
     d = cfg.d_model
+    if d % n_model == 0:
+        d //= n_model
     return {"h": torch.zeros((batch, d), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, CONV_W - 1, d), dtype=dtype,
                                 device=device)}

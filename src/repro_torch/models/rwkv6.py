@@ -16,6 +16,16 @@ the reference): :func:`scan` issues one launch a step and forms the
 readouts of SCAN_BLOCK steps at once.  Training
 (:meth:`RWKV6.forward`) runs the same scan without emitting the state;
 decode runs the same step (:func:`mix_step`).  All state math float32.
+
+Placed (:func:`repro_torch.models.sharding.place_`, with ``ctx``), w_r /
+w_k / w_v / w_g are split by columns and w_o by rows over the model
+group; the token shift and its LoRAs run on every rank.  When the model
+axis divides the heads, a rank runs the recurrence of its H / n heads
+and its state holds them; otherwise the column blocks cut through heads,
+the four projections are all-gathered over the model group and every
+rank runs every head.  The decode state's x_prev holds the rank's d / n
+channels (``launch/specs.py`` ``state_shardings``), all-gathered at the
+next step.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import layers
+from . import layers, sharding
 
 __all__ = ["LORA_RKVG", "LORA_W", "STREAMS", "SCAN_BLOCK", "RWKV6",
            "mix_step", "scan", "state_init"]
@@ -109,72 +119,143 @@ class RWKV6(nn.Module):
             setattr(self, f"B_{s}", layers.weight(generator, r, d, f32,
                                                   device, 0.01))
 
-    def _ddlerp(self, x, x_prev):
+    def _tp(self, ctx):
+        """(ctx, n, r, heads local) when placed and split, else None."""
+        if ctx is None or not sharding.split_on(self, "w_r", -1):
+            return None
+        n = ctx.n_model
+        return ctx, n, ctx.model_rank, self.H % n == 0
+
+    def _weights(self, w):
+        if w is not None:
+            return w
+        return {n: p for n, p in self.named_parameters()}
+
+    def _ddlerp(self, x, x_prev, w=None):
         """Data-dependent token shift.  x, x_prev: (..., d) -> the five
         streams' mixed inputs (float32)."""
+        w = self._weights(w)
         xf = x.float()
         dx = x_prev.float() - xf
-        xxx = xf + self.mu_x * dx
+        xxx = xf + w["mu_x"] * dx
         out = {}
         for s in STREAMS:
-            lora = torch.tanh(xxx @ getattr(self, f"A_{s}")) \
-                @ getattr(self, f"B_{s}")
-            out[s] = xf + dx * (getattr(self, f"mu_{s}") + lora)
+            lora = torch.tanh(xxx @ w[f"A_{s}"]) @ w[f"B_{s}"]
+            out[s] = xf + dx * (w[f"mu_{s}"] + lora)
         return out
 
-    def _streams(self, mixed, dtype):
-        """r, k, v (float32), g (float32), w in (0, 1), each (..., H, D)."""
-        r = mixed["r"].to(dtype) @ self.w_r
-        k = mixed["k"].to(dtype) @ self.w_k
-        v = mixed["v"].to(dtype) @ self.w_v
-        g = F.silu(mixed["g"] @ self.w_g.float())
-        logw = -torch.exp(self.w0 + torch.tanh(mixed["w"] @ self.A_w)
-                          @ self.B_w)
-        shp = r.shape[:-1] + (self.H, self.D)
+    def _streams(self, mixed, dtype, w=None, tp=None):
+        """r, k, v (float32), g (float32), w in (0, 1), each (..., H, D),
+        and u, ln_scale: of the rank's heads when they are local."""
+        w = self._weights(w)
+        u, ln = w["u"], w["ln_scale"]
+        ms = mixed
+        if tp is not None:
+            ms = {s: sharding.enter_model(mixed[s], tp[0])
+                  for s in ("r", "k", "v", "g")}
+        with sharding.split_work(tp is not None):
+            r = ms["r"].to(dtype) @ w["w_r"]
+            k = ms["k"].to(dtype) @ w["w_k"]
+            v = ms["v"].to(dtype) @ w["w_v"]
+            g = F.silu(ms["g"] @ w["w_g"].float())
+        logw = -torch.exp(w["w0"] + torch.tanh(mixed["w"] @ w["A_w"])
+                          @ w["B_w"])
+        wd = torch.exp(logw)
+        H = self.H
+        if tp is not None:
+            ctx, n, rank, local = tp
+            if local:
+                H //= n
+                dl = H * self.D
+                wd = sharding.enter_model(wd, ctx)[..., rank * dl:
+                                                   (rank + 1) * dl]
+                u, ln = (sharding.enter_model(t, ctx)[rank * H:
+                                                      (rank + 1) * H]
+                         for t in (u, ln))
+            else:       # column blocks that cut through heads
+                r, k, v, g = (sharding.all_gather(t, ctx, -1)
+                              for t in (r, k, v, g))
+        shp = r.shape[:-1] + (H, self.D)
         return (r.reshape(shp).float(), k.reshape(shp).float(),
                 v.reshape(shp).float(), g.reshape(shp),
-                torch.exp(logw).reshape(shp))
+                wd.reshape(shp), u, ln)
 
-    def _head_norm(self, y):
+    def _head_norm(self, y, ln_scale=None):
         """Per-head GroupNorm (float32).  y: (..., H, D)."""
+        ln_scale = self.ln_scale if ln_scale is None else ln_scale
         mu = torch.mean(y, dim=-1, keepdim=True)
         var = torch.var(y, dim=-1, keepdim=True, unbiased=False)
-        return (y - mu) * torch.rsqrt(var + 1e-5) * (1.0 + self.ln_scale)
+        return (y - mu) * torch.rsqrt(var + 1e-5) * (1.0 + ln_scale)
 
-    def _full_sequence(self, x):
+    def _out(self, y, w, tp):
+        """y (..., heads D) @ w_o: the rank's rows and the partial sums
+        all-reduced over the model group when w_o is split."""
+        if tp is None:
+            return y @ w["w_o"]
+        if not tp[3]:
+            y = sharding.model_slice(y, tp[0], -1)
+        with sharding.split_work():
+            out = y @ w["w_o"]
+        return sharding.all_reduce(out, tp[0], "model")
+
+    def _full_sequence(self, x, ctx=None, w=None):
         """The full-sequence time mix (the reference's ``rwkv6_apply``):
-        (out (B, T, d), the last state (B, H, D, D) float32)."""
+        (out (B, T, d), the last state (B, H, D, D) float32, of the rank's
+        heads when they are local)."""
         B, T, d = x.shape
+        w, tp = self._weights(w), self._tp(ctx)
         x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
-        r, k, v, g, w = self._streams(self._ddlerp(x, x_prev), x.dtype)
-        y, S = scan(r, k, v, w, self.u)
-        y = self._head_norm(y) * g
-        return y.reshape(B, T, d).to(x.dtype) @ self.w_o, S
+        r, k, v, g, wd, u, ln = self._streams(self._ddlerp(x, x_prev, w),
+                                              x.dtype, w, tp)
+        with sharding.split_work(tp is not None and tp[3]):
+            y, S = scan(r, k, v, wd, u)
+        y = self._head_norm(y, ln) * g
+        return self._out(y.reshape(B, T, -1).to(x.dtype), w, tp), S
 
-    def forward(self, x):
-        """Training: full sequence x (B, T, d) -> out (B, T, d)."""
-        return self._full_sequence(x)[0]
+    def forward(self, x, ctx=None, w=None):
+        """Training: full sequence x (B, T, d) -> out (B, T, d).  ``w``:
+        the weights whole over the data axes (default the parameters)."""
+        return self._full_sequence(x, ctx, w)[0]
 
-    def prefill(self, x):
+    def _x_prev_out(self, x, tp):
+        """The state's x_prev: the rank's d / n channels when placed."""
+        if tp is None:
+            return x
+        dl = x.shape[-1] // tp[1]
+        return x[..., tp[2] * dl:(tp[2] + 1) * dl]
+
+    def prefill(self, x, ctx=None, w=None):
         """Full sequence x (B, T, d) -> (out (B, T, d), decode state
         {"S": the last step's (B, H, D, D) float32, "x_prev": x[:, -1]})."""
-        out, S = self._full_sequence(x)
-        return out, {"S": S, "x_prev": x[:, -1]}
+        out, S = self._full_sequence(x, ctx, w)
+        return out, {"S": S,
+                     "x_prev": self._x_prev_out(x[:, -1], self._tp(ctx))}
 
-    def decode_step(self, x1, state):
+    def decode_step(self, x1, state, ctx=None, w=None):
         """One token x1 (B, 1, d) -> (out (B, 1, d), new state)."""
         B, _, d = x1.shape
-        r, k, v, g, w = self._streams(
-            self._ddlerp(x1[:, 0], state["x_prev"]), x1.dtype)
-        S, y = mix_step(state["S"], r, k, v, w, self.u)
-        y = self._head_norm(y) * g
-        y = y.reshape(B, 1, d).to(x1.dtype) @ self.w_o
-        return y, {"S": S, "x_prev": x1[:, 0]}
+        w, tp = self._weights(w), self._tp(ctx)
+        x_prev = state["x_prev"] if tp is None else \
+            sharding.all_gather(state["x_prev"], tp[0], -1)
+        r, k, v, g, wd, u, ln = self._streams(
+            self._ddlerp(x1[:, 0], x_prev, w), x1.dtype, w, tp)
+        S, y = mix_step(state["S"], r, k, v, wd, u)
+        y = self._head_norm(y, ln) * g
+        y = self._out(y.reshape(B, 1, -1).to(x1.dtype), w, tp)
+        return y, {"S": S, "x_prev": self._x_prev_out(x1[:, 0], tp)}
 
 
-def state_init(cfg, batch, dtype, device=None):
+def state_init(cfg, batch, dtype, device=None, n_model=1):
+    """Zero decode state; placed over ``n_model`` model ranks, the rank's
+    heads of S when n_model divides them and its channels of x_prev when
+    n_model divides d."""
     d = cfg.d_model
     D = cfg.rwkv_head_dim
-    return {"S": torch.zeros((batch, d // D, D, D), dtype=torch.float32,
+    H = d // D
+    if H % n_model == 0:
+        H //= n_model
+    if d % n_model == 0:
+        d //= n_model
+    return {"S": torch.zeros((batch, H, D, D), dtype=torch.float32,
                              device=device),
             "x_prev": torch.zeros((batch, d), dtype=dtype, device=device)}

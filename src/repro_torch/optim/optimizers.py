@@ -13,6 +13,12 @@ the optimizer keeps float32 master weights (AdamW) or float32 factored
 statistics (Adafactor) and returns the updated master cast to each
 parameter's dtype (round to nearest).  State tensors live on the
 parameters' device.
+
+On a mesh the leaves are the rank's blocks (``shards``, a
+:class:`~repro_torch.models.sharding.LeafShards`): AdamW is elementwise;
+the global norm sums each leaf's squares over the groups that shard it
+(a replicated leaf once); Adafactor's row and column statistics and its
+update RMS sum over the groups that shard the dimensions they average.
 """
 from __future__ import annotations
 
@@ -115,21 +121,31 @@ def _adafactor_init(params: dict) -> dict:
             "master": _master(params)}
 
 
-def _update_rms(k, u, eps, reduce_sq=None):
+def _update_rms(k, u, eps, shards=None):
     """The update leaf ``k``'s RMS, sqrt(mean(u^2) + eps), over the whole
-    leaf: with ``reduce_sq`` the sum of squares and the element count of a
-    sharded leaf are summed over its ranks first (in float64)."""
-    if reduce_sq is None:
+    leaf: for a leaf that ``shards`` splits, the sum of squares and the
+    element count are summed over its ranks first (in float64)."""
+    if shards is None or shards.leaf_group(k) is None:
         return torch.sqrt(torch.mean(u * u) + eps)
     part = torch.stack([torch.sum(u * u).double(),
                         torch.tensor(u.numel(), dtype=torch.float64,
                                      device=u.device)])
-    ss, n = reduce_sq({k: part})[k]
+    ss, n = shards.reduce_sq({k: part})[k]
     return torch.sqrt((ss / n).to(F32) + eps)
 
 
+def _mean(shards, k, x, dim, leaf_dim, keepdim=False):
+    """torch.mean over ``dim``; over the whole leaf dimension
+    ``leaf_dim`` when ``shards`` splits it."""
+    if shards is None:
+        out = torch.mean(x, dim)
+    else:
+        out = shards.mean(k, x, dim, leaf_dim)
+    return out.unsqueeze(dim) if keepdim else out
+
+
 def _adafactor_update(grads32, state, params, lr, cfg: OptConfig,
-                      reduce_sq=None):
+                      shards=None):
     step = state["step"] + 1
     beta2 = 1.0 - step.to(F32) ** -0.8
     eps = 1e-30
@@ -137,10 +153,13 @@ def _adafactor_update(grads32, state, params, lr, cfg: OptConfig,
     for k, p in params.items():
         g, st, master = grads32[k], state["stats"][k], state["master"][k]
         if p.ndim >= 2:
-            vr = beta2 * st["vr"] + (1 - beta2) * torch.mean(g * g + eps, -1)
-            vc = beta2 * st["vc"] + (1 - beta2) * torch.mean(g * g + eps, -2)
+            vr = beta2 * st["vr"] + (1 - beta2) * _mean(
+                shards, k, g * g + eps, -1, -1)
+            vc = beta2 * st["vc"] + (1 - beta2) * _mean(
+                shards, k, g * g + eps, -2, -2)
             denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(torch.mean(vr, -1, keepdim=True)[..., None],
+                     / torch.clamp(_mean(shards, k, vr, -1, -2,
+                                         keepdim=True)[..., None],
                                    min=eps))
             u = g * torch.rsqrt(denom + eps)
             st2[k] = {"vr": vr, "vc": vc}
@@ -149,7 +168,7 @@ def _adafactor_update(grads32, state, params, lr, cfg: OptConfig,
             u = g * torch.rsqrt(v + eps)
             st2[k] = {"v": v}
         # update clipping (RMS <= 1), one RMS over the whole (stacked) leaf
-        rms = _update_rms(k, u, eps, reduce_sq)
+        rms = _update_rms(k, u, eps, shards)
         u = u / torch.clamp(rms, min=1.0)
         new = master - lr * (u + cfg.weight_decay * master)
         new_p[k], ma2[k] = new.to(p.dtype), new
@@ -171,17 +190,19 @@ def init_opt(cfg: OptConfig, params: dict) -> dict:
 
 
 def opt_update(cfg: OptConfig, grads: dict, state: dict, params: dict, lr,
-               reduce_sq=None):
+               shards=None):
     """grads may be any float dtype; clipping and the update in float32.
     Returns (new params {path: tensor in each parameter's dtype}, new
-    state, grad norm).  ``reduce_sq``: see :func:`global_norm`; it also
-    completes Adafactor's update RMS over a sharded leaf."""
-    grads32, gnorm = clip_by_global_norm(grads, cfg.clip_norm, reduce_sq)
+    state, grad norm).  ``shards``: where each leaf lives on the mesh
+    (:class:`~repro_torch.models.sharding.LeafShards`), for the global
+    norm and Adafactor's statistics over sharded leaves."""
+    grads32, gnorm = clip_by_global_norm(
+        grads, cfg.clip_norm, None if shards is None else shards.reduce_sq)
     if cfg.name == "adamw":
         params2, state2 = _adamw_update(grads32, state, params, lr, cfg)
     elif cfg.name == "adafactor":
         params2, state2 = _adafactor_update(grads32, state, params, lr, cfg,
-                                            reduce_sq)
+                                            shards)
     else:
         raise ValueError(cfg.name)
     return params2, state2, gnorm

@@ -3,7 +3,7 @@ devices, the side the port's sharded paths are held to.  Run by
 tests/test_torch_moe_sharded.py and tests/test_torch_lm_sharded.py:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        python sharded_ref.py {moe|lm} OUT_NPZ MESH [MESH ...]
+        python sharded_ref.py {moe|lm|placed[=ARCH]} OUT_NPZ MESH [MESH ...]
 
 MESH is "<n_data>x<n_model>".  Meshes are built with Auto axes through
 ``repro.core.compat.make_mesh(..., axis_types=...)``: the reference's own
@@ -21,7 +21,15 @@ states (max_len 24), one ``decode_step(ctx)``; at meshes 1x4 and 2x2
 the model axis does not split (the MoE's non-sequence-parallel branch);
 for olmoe three jitted ``make_train_step(ctx)`` steps (loss, grad norm,
 parameters, error-feedback residuals) of each train case of its mesh
-(:func:`train_cases`)."""
+(:func:`train_cases`).
+
+placed: for reduced olmoe-1b-7b, llama4-maverick-400b-a17b and glm4-9b
+(f32; or ARCH alone) the weights placed by ``jax.device_put(params,
+param_shardings(...))``, a batch (4, 16), and per mesh ``loss_fn(ctx)``
+and every gradient, ``prefill(ctx)`` logits and states (max_len 24), one
+``decode_step(ctx)``, and three jitted ``make_train_step(ctx,
+param_shardings=)`` steps of AdamW and of Adafactor (loss, grad norm,
+parameters)."""
 import sys
 
 import numpy as np
@@ -30,8 +38,9 @@ import jax.numpy as jnp
 
 from repro import configs
 from repro.core.compat import make_mesh
+from repro.launch.specs import opt_specs
 from repro.models import lm, moe
-from repro.models.sharding import ShardCtx
+from repro.models.sharding import ShardCtx, param_shardings
 from repro.optim import OptConfig, init_opt
 from repro.train import TrainConfig, make_train_step
 from repro.train import compress as compress_lib
@@ -163,10 +172,73 @@ def train(cfg, params, ctx, tag, opt, comp, block, out):
         out.update(flat(err, f"{tag}/err"))
 
 
+PLACED_ARCHS = ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "glm4-9b")
+PLACED_TRAIN = {"adamw": OPT, "adafactor": dict(OPT, name="adafactor")}
+
+
+def placed_part(meshes, out, only=None):
+    for a, arch in enumerate(PLACED_ARCHS):
+        if only not in (None, arch):
+            continue
+        cfg = configs.reduced(arch)
+        params = lm.init(cfg, jax.random.key(80 + a))
+        batch = batch_of(cfg, 90 + a)
+        nxt = np.random.default_rng(100 + a).integers(
+            1, cfg.vocab_size, (B, 1), np.int32)
+        out.update(flat(params, f"{arch}/params"))
+        out.update({f"{arch}/batch/{k}": v for k, v in batch.items()})
+        out[f"{arch}/next"] = nxt
+        for m in meshes:
+            ctx = ctx_of(m)
+            p_sh = param_shardings(jax.eval_shape(lambda: params), ctx)
+            placed = jax.device_put(params, p_sh)
+            jb = {k: jnp.asarray(v) for k, v in batch.items()}
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p, b: lm.loss_fn(p, cfg, b, ctx)))(placed, jb)
+            out[f"{arch}/{m}/loss"] = np.asarray(loss)
+            out.update(flat(grads, f"{arch}/{m}/grads"))
+            logits, states = jax.jit(
+                lambda p, b: lm.prefill(p, cfg, b, MAX_LEN, ctx))(
+                placed, {"tokens": jb["tokens"]})
+            out[f"{arch}/{m}/prefill_logits"] = np.asarray(logits)
+            out.update(flat(states, f"{arch}/{m}/states"))
+            logits, states = jax.jit(
+                lambda p, b, st: lm.decode_step(p, cfg, b, st, S, ctx))(
+                placed, {"tokens": jnp.asarray(nxt)}, states)
+            out[f"{arch}/{m}/decode_logits"] = np.asarray(logits)
+            out.update(flat(states, f"{arch}/{m}/decode_states"))
+            for case, opt in PLACED_TRAIN.items():
+                tcfg = TrainConfig(opt=OptConfig(**opt))
+                # the dry run's layout (launch/dryrun.py build_train): the
+                # optimizer state under the same rules, outputs laid out
+                # as the inputs (one compile, not one a layout)
+                _, o_sh = opt_specs(cfg, ctx, tcfg.opt,
+                                    jax.eval_shape(lambda: params))
+                p = placed
+                st = jax.device_put(init_opt(tcfg.opt, placed), o_sh)
+                step = jax.jit(make_train_step(cfg, tcfg, ctx,
+                                               param_shardings=p_sh),
+                               in_shardings=(p_sh, o_sh, None, None, None),
+                               out_shardings=(p_sh, o_sh, None, None))
+                tag = f"{arch}/{m}/train/{case}"
+                for s in range(TRAIN_STEPS):
+                    b = {k: jnp.asarray(v)
+                         for k, v in batch_of(cfg, 110 + s).items()}
+                    p, st, _, met = step(p, st, None, b, jnp.int32(s))
+                    out[f"{tag}/{s}/loss"] = np.asarray(met["loss"])
+                    out[f"{tag}/{s}/grad_norm"] = np.asarray(
+                        met["grad_norm"])
+                out.update(flat(p, f"{tag}/params"))
+
+
 def main():
     part, path, meshes = sys.argv[1], sys.argv[2], sys.argv[3:]
     out = {}
-    {"moe": moe_part, "lm": lm_part}[part](meshes, out)
+    part, _, arch = part.partition("=")
+    if part == "placed":
+        placed_part(meshes, out, arch or None)
+    else:
+        {"moe": moe_part, "lm": lm_part}[part](meshes, out)
     np.savez(path, **out)
     print("SHARDED_REF_OK", len(out))
 

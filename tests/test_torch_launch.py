@@ -14,6 +14,7 @@ the reference's ``analytic_flops`` of ``build_train`` / ``build_prefill``
 / ``build_decode`` (8 fake XLA devices, Auto axes; a subprocess).  The
 specs allocate nothing; the dry run runs in one process with no process
 group."""
+import functools
 import json
 import os
 import pathlib
@@ -138,11 +139,18 @@ def ref_flops(tmp_path_factory):
     return json.loads((d / "out.json").read_text())
 
 
+@functools.lru_cache(maxsize=None)
+def _cell(arch, shape):
+    """The dry run's record of a reduced cell on a (2, 4) mesh, traced
+    once for every test that reads it."""
+    ctx = tsh.shape_ctx((2, 4), ("data", "model"))
+    return dryrun.run_cell(arch, shape, False, ctx=ctx,
+                           cfg=tconfigs.reduced(arch))
+
+
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_cell_flops_match_reference(ref_flops, arch, shape):
-    ctx = tsh.shape_ctx((2, 4), ("data", "model"))
-    res = dryrun.run_cell(arch, shape, False, ctx=ctx,
-                          cfg=tconfigs.reduced(arch))
+    res = _cell(arch, shape)
     want = ref_flops[f"{arch}/{shape}"]
     assert res["flops_analytic_global"] == pytest.approx(want,
                                                          rel=FLOPS_RTOL)
@@ -154,6 +162,32 @@ def test_cell_flops_match_reference(ref_flops, arch, shape):
         assert calls["all-to-all"] > 0 and res["flops_moe_per_device"] > 0
         if shape != "decode_32k":      # S divides the model axis: SP
             assert calls["all-gather"] > 0
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_placed_rank_holds_what_the_rules_give(arch, shape):
+    """The rank's parameters and optimizer state at run time are the
+    rules' bytes (a placed model: no parameter replicated beyond its
+    placement), and so are its decode states."""
+    mem = _cell(arch, shape)["memory"]
+    rules, runtime = mem["argument_parts_gb"], mem["argument_runtime_parts_gb"]
+    for part in ("params", "opt", "states"):
+        if part in rules:
+            assert runtime[part] == pytest.approx(rules[part], rel=1e-12), \
+                part
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_collectives_list_the_parameter_gathers(arch, shape):
+    """Each block gathers its data-sharded weights (one all-gather a
+    dtype); a train step reduce-scatters their gradients back."""
+    res = _cell(arch, shape)
+    calls = res["collectives"]["calls"]
+    layers = tconfigs.reduced(arch).num_layers
+    assert calls["all-gather"] >= layers + 1
+    if shape == "train_4k":
+        assert calls["reduce-scatter"] >= layers + 1
+    assert res["flops_split_per_device"] > 0
 
 
 def test_soft_cell_traces_the_executor():

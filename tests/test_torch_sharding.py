@@ -152,15 +152,22 @@ def test_shape_only_ctx_runs_on_meta_and_raises_on_real_tensors():
 
 
 def test_sharded_meta_model_holds_its_experts():
+    """Placed at 16x16, each MoE layer holds E / 16 experts, each expert's
+    inner dimension cut over the data axis."""
     cfg = tconfigs.get("olmoe-1b-7b")
     ctx = tsh.shape_ctx((16, 16), ("data", "model"))
     model = tlm.LM(cfg, device="meta")
-    full = sum(p.numel() for p in model.parameters())
-    model.shard_experts(ctx)
+    whole = {n: tuple(p.shape) for n, p in model.named_parameters()
+             if tsh.is_expert(n)}
+    tsh.place_(model, ctx)
     for b in model.blocks:
         assert b.moe.wi.shape[0] == cfg.moe.num_experts // 16
-    experts = sum(b.moe.wi.numel() + b.moe.wo.numel() for b in model.blocks)
-    assert sum(p.numel() for p in model.parameters()) + 15 * experts == full
+    for name, p in model.named_parameters():
+        if name in whole:
+            E, a, c = whole[name]
+            want = (E // 16, a // 16, c) if name.endswith("wi") else \
+                (E // 16, a, c // 16)
+            assert tuple(p.shape) == want, name
 
 
 def test_local_ctx_is_one_rank_gloo_on_the_cpu():
@@ -171,3 +178,101 @@ def test_local_ctx_is_one_rank_gloo_on_the_cpu():
         assert torch.equal(tsh.all_to_all(x, ctx), x)
         assert torch.equal(tsh.all_reduce(x, ctx, "world"), x)
     assert not torch.distributed.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# run-time placements (place_, the bucketed gathers, the new collectives)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "nemotron-4-340b",
+                                  "rwkv6-3b", "recurrentgemma-9b",
+                                  "llama4-maverick-400b-a17b"])
+def test_place_cuts_each_parameter_to_its_block(arch, mesh):
+    """On the meta device, a placed model's parameters have the shapes
+    the rules give a rank, and its bytes are the rules' bytes."""
+    cfg = tconfigs.get(arch)
+    ctx = _ctx(mesh)
+    model, placements = tspecs.params_specs(cfg, ctx)
+    whole = {n: p.shape for n, p in model.named_parameters()}
+    want = tspecs.placement_bytes(dict(model.named_parameters()),
+                                  placements, ctx)
+    tsh.place_(model, ctx)
+    assert tsh.placements_of(model) == placements
+    for name, p in model.named_parameters():
+        assert tuple(p.shape) == tspecs.local_shape(whole[name],
+                                                    placements[name], ctx)
+    assert sum(p.numel() * p.element_size()
+               for p in model.parameters()) == want
+    with pytest.raises(ValueError, match="placed already"):
+        tsh.place_(model, ctx)
+
+
+def test_shape_only_gathers_and_reduce_scatters():
+    """On meta tensors: the block gather is one all-gather per dtype over
+    the data group, whole shapes out; reduce_scatter keeps the rank's
+    block; a partial all-gather's backward reduce-scatters; model_slice
+    takes the rank's block and gathers in the backward."""
+    ctx = tsh.shape_ctx((2, 4), ("data", "model"))
+    cfg = tconfigs.reduced("glm4-9b")
+    model = tlm.LM(cfg, device="meta")
+    whole = {n: p.shape for n, p in model.named_parameters()}
+    tsh.place_(model, ctx)
+    block = model.blocks[0]
+    tsh.reset_collectives()
+    w = tsh.gather_params(block, ctx)
+    assert tsh.collective_summary()["calls"] == {"all-gather": 1}
+    for name, t in w.items():
+        spec = tsh.spec_of(block.get_submodule(name.rpartition(".")[0]),
+                           name.rpartition(".")[2])
+        full = list(whole[f"blocks.0.{name}"])
+        if "model" in spec:
+            full[spec.index("model")] //= 4
+        assert list(t.shape) == full, name
+    x = torch.empty((8, 12), device="meta", requires_grad=True)
+    tsh.reset_collectives()
+    assert tsh.reduce_scatter(x, ctx, "model", 1).shape == (8, 3)
+    y = tsh.all_gather(x, ctx, 0, partial=True)
+    assert y.shape == (32, 12)
+    y.sum().backward()
+    z = tsh.model_slice(x, ctx, 1)
+    assert z.shape == (8, 3)
+    got = tsh.collective_summary()
+    assert got["calls"] == {"reduce-scatter": 2, "all-gather": 1}
+    assert got["by_op"]["reduce-scatter"] == (8 * 3 + 8 * 12) * 4
+
+
+def test_one_rank_gathers_keep_values_layouts_and_gradients():
+    """At one gloo rank every collective is a copy: the block gather
+    returns each weight's values, a gather keeps its input's layout (a
+    matmul picks its kernel by the strides), and the gradients come back
+    onto the shards unchanged."""
+    with tmesh.local_ctx(torch.device("cpu")) as ctx:
+        cfg = tconfigs.reduced("olmoe-1b-7b")
+        model = tlm.init(cfg, torch.Generator().manual_seed(0), "cpu",
+                         ctx).trainable()
+        block = model.blocks[1]
+        w = tsh.gather_params(block, ctx)
+        for name, p in block.named_parameters():
+            assert torch.equal(w[name], p), name
+        sum(t.float().square().sum() for t in w.values()).backward()
+        for name, p in block.named_parameters():
+            assert torch.equal(p.grad, 2 * p.detach()), name
+        x = torch.arange(12.0).reshape(3, 4).t()
+        y = tsh.all_gather(x, ctx, 0)
+        assert torch.equal(y, x) and y.stride() == x.stride()
+        assert torch.equal(tsh.reduce_scatter(x, ctx, "data", 1), x)
+
+
+def test_leaf_shards_sum_over_the_groups_that_split_a_leaf():
+    ctx = tsh.shape_ctx((2, 4), ("data", "model"))
+    shards = tsh.LeafShards(ctx, {"a": (None, "data", "model"),
+                                  "b": ("model",), "c": (), "d": ("data",)})
+    assert [shards.leaf_group(k) for k in "abcd"] == ["world", "model",
+                                                      None, "data"]
+    assert shards.dim_group("a", -1) == "model"
+    assert shards.dim_group("a", -2) == "data"
+    assert shards.dim_group("c", -1) is None
+    one = tsh.LeafShards(tsh.shape_ctx((1, 1), ("data", "model")),
+                         {"a": ("data", "model")})
+    assert one.leaf_group("a") is None      # a one-rank group splits nothing
