@@ -201,6 +201,7 @@ the output directory OUT.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -341,7 +342,7 @@ def ptxas_summary(name: str, text: str) -> list[str]:
         short = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
                           r"dwt_stream_inv|build_windows_kernel|"
                           r"onthefly_fwd|onthefly_inv|dense_kernel|"
-                          r"dense_dmma|dense_inv_f32|"
+                          r"dense_dmma|dense_inv_f32|dense_fwd_f32|"
                           r"folded_attention_bf16_kernel|"
                           r"folded_attention_scalar_kernel)"
                           r"I(.*?)EEv", k["kernel"])
@@ -357,11 +358,14 @@ def ptxas_summary(name: str, text: str) -> list[str]:
 def recurrence_kernel_info(logs: dict) -> dict:
     """Phase 2 for the recurrence kernels (dwt_fused.cu, streaming.cu):
     their shared-memory figures against autotune.estimate_smem_bytes at
-    J = 8 / 256 / 512 / 1024 (L = J / 2), C2 = 16 / 48 / 128 and, for the
-    streaming forward, the l-chunk; and every f64 instantiation's
-    registers, stack frame and spills from its ptxas log, held to no
-    local memory (the tensor-core body keeps its mma fragments in
-    registers; the 1024-thread forward, J > 512, has 64)."""
+    J = 8 / 64 / 128 / 256 / 512 / 1024 (L = J / 2), C2 = 16 / 48 / 128
+    and, for the streaming forward, the l-chunk; and the registers, stack
+    frame and spills of every instantiation from its ptxas log: the 20 f64
+    ones (the tensor-core body keeps its mma fragments in registers; the
+    1024-thread forward, J > 512, has 64) and the 24 of the f32
+    register-blocked body (1, 2 or 4 lanes a thread) held to no local
+    memory; the 16 of the f32 scalar body (the bit reference, kScalar)
+    reported."""
     import ctypes
     from repro_torch.kernels import autotune, runtime
     fused = runtime.library("dwt_fused").dwt_fused_smem_bytes
@@ -370,7 +374,7 @@ def recurrence_kernel_info(logs: dict) -> dict:
     stream.argtypes = [ctypes.c_int] * 6
     for fn in (fused, stream):
         fn.restype = ctypes.c_longlong
-    for J in (8, 256, 512, 1024):
+    for J in (8, 64, 128, 256, 512, 1024):
         L = J // 2
         for C2 in (16, 48, 128):
             for itemsize in (4, 8):
@@ -388,33 +392,40 @@ def recurrence_kernel_info(logs: dict) -> dict:
                                  f"(J={J}, C2={C2}, itemsize={itemsize}, "
                                  f"inverse={inv}, lchunk={lchunk})")
     out = {}
+    kinds = {"f64": 0, "f32": 0, "f32 scalar": 0}
     for lib_name in ("dwt_fused", "streaming"):
         for k in ptxas_kernels(logs[lib_name]):
             hit = re.search(r"(dwt_fused_fwd|dwt_fused_inv|dwt_stream_fwd|"
-                            r"dwt_stream_inv)Id(13__nv_bfloat16|d)?"
-                            r"Li(\d+)E(?:Lb(\d)E)?Li(\d+)E", k["kernel"])
+                            r"dwt_stream_inv)I([fd])(13__nv_bfloat16|[fd])?"
+                            r"Li(\d+)E(?:Lb(\d)E)?Li(\d+)ELb(\d)E",
+                            k["kernel"])
             if not hit:
                 continue
             if "stack" not in k:
                 fail(f"{lib_name}: no ptxas figures for {k['kernel']}")
-            bf16 = hit.group(2) == "13__nv_bfloat16"
-            every = hit.group(4) == "1"
-            name = (f"{hit.group(1)}<f64{' bf16' if bf16 else ''} "
-                    f"{hit.group(3)} threads{' every degree' if every else ''}"
-                    f" {hit.group(5)} lanes>")
+            kind = ("f64" if hit.group(2) == "d" else
+                    "f32 scalar" if hit.group(7) == "1" else "f32")
+            kinds[kind] += 1
+            bf16 = hit.group(3) == "13__nv_bfloat16"
+            every = hit.group(5) == "1"
+            name = (f"{hit.group(1)}<{kind}{' bf16' if bf16 else ''} "
+                    f"{hit.group(4)} threads{' every degree' if every else ''}"
+                    f" {hit.group(6)} lanes>")
             rec = {"registers": k["registers"], "stack_bytes": k["stack"],
                    "spill_bytes": k["spill_stores"]}
             out[name] = rec
             log(f"  {name}: {rec['registers']} registers, stack "
                 f"{rec['stack_bytes']} B, spills {rec['spill_bytes']} B")
-            if rec["stack_bytes"] or rec["spill_bytes"]:
+            if kind != "f32 scalar" and (rec["stack_bytes"]
+                                         or rec["spill_bytes"]):
                 fail(f"{name} uses local memory (stack {rec['stack_bytes']}"
                      f" B, spills {rec['spill_bytes']} B)")
-    if len(out) != 20:
-        fail(f"expected 20 f64 recurrence-kernel instantiations in the "
-             f"ptxas logs, found {len(out)}: {sorted(out)}")
+    if kinds != {"f64": 20, "f32": 24, "f32 scalar": 16}:
+        fail(f"expected 20 f64, 24 f32 and 16 f32 scalar recurrence-kernel "
+             f"instantiations in the ptxas logs, found {kinds}: "
+             f"{sorted(out)}")
     log("  shared-memory estimates agree with the recurrence kernels; no "
-        "f64 recurrence kernel uses local memory")
+        "f64 or f32 register-blocked recurrence kernel uses local memory")
     return out
 
 
@@ -426,9 +437,11 @@ def table_kernel_info(log_text: str) -> dict:
     f64, forward and inverse; and the registers, stack frame and spills
     of every kernel the file compiles, from its ptxas log -- the DMMA
     body (dense_dmma, 16 / 64 lanes, dense, ragged and inverse), the f32
-    inverse (dense_inv_f32, 16 / 64 lanes) and the scalar body
-    (dense_kernel, f32 and f64, four tiles, dense, ragged and inverse: the
-    f32 forwards and the bit reference) -- held to no local memory."""
+    forwards (dense_fwd_f32, 64 / 128 rows by 16 / 64 lanes, dense and
+    ragged), the f32 inverse (dense_inv_f32, 16 / 64 lanes) and the scalar
+    body (dense_kernel, f32 and f64, four tiles, dense, ragged and
+    inverse: the bit reference, and the f32 kernels at odd shapes) --
+    held to no local memory."""
     import ctypes
     from repro_torch.kernels import autotune, runtime
     fn = runtime.library("dwt_dense").dwt_dense_smem_bytes
@@ -453,6 +466,10 @@ def table_kernel_info(log_text: str) -> dict:
         if hit:
             name = (f"dense_dmma<f64 {2 * int(hit.group(1))} lanes "
                     f"{way[hit.group(2), hit.group(3)]}>")
+        hit = re.search(r"dense_fwd_f32ILi(\d+)ELi(\d+)ELb(\d)E", k["kernel"])
+        if hit:
+            name = (f"dense_fwd_f32<{hit.group(1)} rows x {hit.group(2)} "
+                    f"lanes {way['0', hit.group(3)]}>")
         hit = re.search(r"dense_inv_f32ILi(\d+)E", k["kernel"])
         if hit:
             name = f"dense_inv_f32<{hit.group(1)} lanes inverse>"
@@ -474,8 +491,8 @@ def table_kernel_info(log_text: str) -> dict:
         if rec["stack_bytes"] or rec["spill_bytes"]:
             fail(f"{name} uses local memory (stack {rec['stack_bytes']}"
                  f" B, spills {rec['spill_bytes']} B)")
-    if len(out) != 32:
-        fail(f"expected 32 table-kernel instantiations in the ptxas log, "
+    if len(out) != 40:
+        fail(f"expected 40 table-kernel instantiations in the ptxas log, "
              f"found {len(out)}: {sorted(out)}")
     log("  shared-memory estimates agree with the table kernels; no table "
         "kernel uses local memory")
@@ -609,6 +626,53 @@ class Case:
         return t.to(torch.bfloat16).to(t.dtype) if precision == "bf16" else t
 
 
+@contextlib.contextmanager
+def scalar_body():
+    """Within the block every f32 launch of the recurrence wrappers
+    (fused, on-the-fly, streaming; not the window builder) runs the f32
+    scalar body, the ``*_f32_scalar`` / ``*_f32_{fp32,bf16}_scalar`` C
+    entries: the bit reference of the register-blocked body.  The
+    wrappers' launch counts are restored after (comparison launches do
+    not count)."""
+    from repro_torch.kernels import runtime
+    real = runtime.launch
+    mods = _launch_modules()
+    saved = [dict(m.LAUNCHES) for m in mods]
+
+    def launch(source, symbol, what, device, tensors, ints, floats=()):
+        if source in ("dwt_fused", "streaming") and "_f32" in symbol \
+                and not symbol.startswith("build_windows"):
+            symbol += "_scalar"
+        return real(source, symbol, what, device, tensors, ints, floats)
+
+    runtime.launch = launch
+    try:
+        yield
+    finally:
+        runtime.launch = real
+        for m, counts in zip(mods, saved):
+            m.LAUNCHES.update(counts)
+
+
+def scalar_gate(name, tag, got, run, rec, *, time_it: bool):
+    """An f32 recurrence kernel's output ``got`` against the scalar body
+    on the same launch (``run`` under :func:`scalar_body`), torch.equal;
+    timed, the scalar body's time as ``scalar_ms``."""
+    import torch
+    with scalar_body():
+        ref = run()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, ref))
+        if time_it:
+            rec["scalar_ms"] = cuda_ms(run, 5)
+    del ref
+    rec["equals_scalar_body"] = same
+    log(f"  {name} == its f32 scalar body {tag}: {same}"
+        + (f"; scalar body {rec['scalar_ms']:.4f} ms" if time_it else ""))
+    if not same:
+        fail(f"{name} differs from the f32 scalar body at {tag}")
+
+
 def compare(name, tag, got, want, dname, precision="fp32"):
     import torch
     torch.cuda.synchronize()
@@ -650,6 +714,8 @@ def fused_case(c: Case, *, time_it: bool):
             if lmask.any() and c.sorted(got)[lmask].abs().max() != 0:
                 fail(f"dwt_fused B={c.B}: rows below l0 are not zero")
         rec.update(B=c.B, dtype=c.dname, V=c.V, shape=c.shape, rows=c.rows)
+        if c.dtype == torch.float32:
+            scalar_gate(name, tag, got, run, rec, time_it=time_it)
         if time_it:
             if table is None:
                 table = c.table()
@@ -719,6 +785,8 @@ def streaming_case(c: Case, lchunk: int, precision: str, *, time_it: bool):
         rec = compare(name, tag, got, want, c.dname, precision)
         rec.update(B=c.B, dtype=c.dname, V=c.V, lchunk=lchunk,
                    precision=precision, shape=c.shape, rows=c.rows)
+        if c.dtype == torch.float32:
+            scalar_gate(name, tag, got, run, rec, time_it=time_it)
         if time_it:
             if table is None:
                 table = c.table(precision)
@@ -821,6 +889,13 @@ def bitwise_streaming(B: int, V: int, dtype, lchunks, seed: int) -> dict:
                     *c.args, c.lhs, c.l0s, win, lchunk=lc, **kw)}
         got = {d: run() for d, run in runs.items()}
         torch.cuda.synchronize()
+        if dtype == torch.float32:
+            for d, run in runs.items():
+                rec = {}
+                scalar_gate(f"{d}_streaming", f"B={B} V={V} lchunk={lc}",
+                            got[d], run, rec, time_it=False)
+                res[f"{d}_l{lc}_equals_scalar_body"] = \
+                    rec["equals_scalar_body"]
         for d in ("dwt", "idwt"):
             same = bool(torch.equal(got[d], fused[d]))
             diff = float((got[d] - fused[d]).abs().max())
@@ -969,37 +1044,38 @@ def table_raw(symbol, d, rhs, *, meta=None, kk=None, ll=None, tl=None,
     return out
 
 
-def dmma_gates(c: TableCase, meta, seen, tl: int, dense, ragged) -> dict:
-    """The f64 forward on the tensor cores (dense, ragged: the wrappers'
-    outputs on c) against the scalar FMA body (the _fma check symbols),
-    torch.equal; ragged == dense on the rows the work list visits; lane
-    k == the single transform (V > 1); and an irregular work list (every
-    third entry dropped, one repeated, order reversed) written exactly on
-    its rows into a NaN-filled output, the rest left NaN.  Any
-    difference fails."""
+def forward_gates(c: TableCase, meta, seen, tl: int, dense, ragged) -> dict:
+    """The forward table kernels (dense, ragged: the wrappers' outputs on
+    c; f64 on the tensor cores, f32 register-blocked) against the scalar
+    FMA body (the _fma check symbols), torch.equal; ragged == dense on the
+    rows the work list visits; lane k == the single transform (V > 1);
+    and an irregular work list (every third entry dropped, one repeated,
+    order reversed) written exactly on its rows into a NaN-filled output,
+    the rest left NaN.  Any difference fails."""
     import torch
     from repro_torch.kernels import dwt as dk, dwt_fused as dfk, runtime
 
     K, L, J, C2 = c.shape
+    sfx = runtime.suffix(c.dtype)
     tag = f"{c.tag} tl={tl}"
     gates = {
-        "dwt_dense == dwt_dense_f64_fma": torch.equal(
-            dense, table_raw("dwt_dense_f64_fma", c.d, c.rhs)),
-        "dwt_ragged == dwt_ragged_f64_fma (visited rows)": torch.equal(
-            ragged[seen], table_raw("dwt_ragged_f64_fma", c.d, c.rhs,
+        f"dwt_dense == dwt_dense_{sfx}_fma": torch.equal(
+            dense, table_raw(f"dwt_dense_{sfx}_fma", c.d, c.rhs)),
+        f"dwt_ragged == dwt_ragged_{sfx}_fma (visited rows)": torch.equal(
+            ragged[seen], table_raw(f"dwt_ragged_{sfx}_fma", c.d, c.rhs,
                                     meta=meta, tl=tl)[seen]),
         "dwt_ragged == dwt_dense (visited rows)": torch.equal(
             ragged[seen], dense[seen])}
     if c.V > 1:
         gates["lane k == single transform"] = torch.equal(torch.cat(
-            [table_raw("dwt_dense_f64", c.d, grp)
+            [table_raw(f"dwt_dense_{sfx}", c.d, grp)
              for grp in runtime.lane_groups(c.rhs)], -1), dense)
     G = len(meta.kk)
     keep = ([g for g in range(G) if g % 3 != 1] + [0])[::-1]
     kk, ll = meta.kk_t[keep].contiguous(), meta.ll_t[keep].contiguous()
     seen2 = dfk.unpermute_rows(dk.visited_mask(kk, ll, K=K, L=L, tk=8,
                                                tl=tl), meta.perm_t)
-    out = table_raw("dwt_ragged_f64", c.d, c.rhs, meta=meta, kk=kk, ll=ll,
+    out = table_raw(f"dwt_ragged_{sfx}", c.d, c.rhs, meta=meta, kk=kk, ll=ll,
                     tl=tl, out=torch.full((K, L, C2), float("nan"),
                                           dtype=c.dtype, device=c.d.device))
     gates["irregular work list: its rows == dwt_dense, the rest unwritten"] \
@@ -1037,10 +1113,10 @@ def inverse_gates(c: TableCase, got) -> dict:
 def table_case(c: TableCase, tl: int, *, time_it: bool):
     """dwt_dense / idwt_dense / dwt_ragged (tl) against their plain
     versions on c's table; the ragged output is compared on the blocks
-    its work list visits (the rest is undefined).  In f64 the forward
-    kernels also pass :func:`dmma_gates`, and in both dtypes the inverse
+    its work list visits (the rest is undefined).  In both dtypes the
+    forward kernels also pass :func:`forward_gates` and the inverse
     :func:`inverse_gates`; timed, the scalar FMA body's time (``fma_ms``)
-    stands beside the f64 kernels' and the f32 inverse's."""
+    stands beside every kernel's."""
     import torch
     from repro_torch.kernels import dwt as dk, dwt_fused as dfk, ops, runtime
 
@@ -1052,34 +1128,34 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
     log(f"  dwt_ragged {c.tag} tl={tl}: work list G={G} blocks of the "
         f"dense grid's {meta.n_dense} ({G / meta.n_dense:.3f})")
     zero = torch.zeros((), dtype=c.dtype, device=c.d.device)
-    f64 = c.dtype == torch.float64
+    sfx = runtime.suffix(c.dtype)
     recs = {}
     kw = dict(tk=8, tl=tl, tj=J)
     for name, x, run, plain, lib, fma in (
             ("dwt_dense", c.rhs, lambda: dk.dwt_dense(c.d, c.rhs, **kw),
              lambda: dk.dwt_dense_plain(c.d, c.rhs),
              lambda: torch.bmm(c.d, c.rhs),
-             lambda: table_raw("dwt_dense_f64_fma", c.d, c.rhs)),
+             lambda: table_raw(f"dwt_dense_{sfx}_fma", c.d, c.rhs)),
             ("idwt_dense", c.lhs, lambda: dk.idwt_dense(c.d, c.lhs, **kw),
              lambda: dk.idwt_dense_plain(c.d, c.lhs),
              lambda: torch.bmm(c.d.transpose(1, 2), c.lhs),
-             lambda: table_raw(f"idwt_dense_{runtime.suffix(c.dtype)}_fma",
-                               c.d, c.lhs)),
+             lambda: table_raw(f"idwt_dense_{sfx}_fma", c.d, c.lhs)),
             ("dwt_ragged", c.rhs,
              lambda: dk.dwt_ragged(c.d, c.rhs, meta.kk_t, meta.ll_t,
                                    perm=meta.perm_t, **kw),
              lambda: dk.dwt_ragged_plain(c.d, c.rhs, meta.kk_t, meta.ll_t,
                                          tk=8, tl=tl, perm=meta.perm_t),
              lambda: torch.bmm(c.d, c.rhs),
-             lambda: table_raw("dwt_ragged_f64_fma", c.d, c.rhs, meta=meta,
-                               tl=tl))):
+             lambda: table_raw(f"dwt_ragged_{sfx}_fma", c.d, c.rhs,
+                               meta=meta, tl=tl))):
         got, want = run(), plain()
         if name == "idwt_dense":
             recs["inverse_gates"] = inverse_gates(c, got)
-        if f64 and name == "dwt_dense":
+        if name == "dwt_dense":
             dense = got
-        if f64 and name == "dwt_ragged":
-            recs["dmma_gates"] = dmma_gates(c, meta, seen, tl, dense, got)
+        if name == "dwt_ragged":
+            recs["forward_gates"] = forward_gates(c, meta, seen, tl, dense,
+                                                  got)
             del dense
         if name == "dwt_ragged":
             got = torch.where(seen[:, :, None], got, zero)
@@ -1091,11 +1167,10 @@ def table_case(c: TableCase, tl: int, *, time_it: bool):
             _timed(rec, run, plain, lib, table_bound(
                 c.d, x, got, c.dname,
                 blocks=(G, 8, tl) if name == "dwt_ragged" else None))
-            if f64 or name == "idwt_dense":
-                rec["fma_ms"] = cuda_ms(fma, 5)
-                log(f"    scalar FMA body (the bit reference) "
-                    f"{rec['fma_ms']:.4f} ms: kernel / scalar body = "
-                    f"{rec['ms'] / rec['fma_ms']:.3f}")
+            rec["fma_ms"] = cuda_ms(fma, 5)
+            log(f"    scalar FMA body (the bit reference) "
+                f"{rec['fma_ms']:.4f} ms: kernel / scalar body = "
+                f"{rec['ms'] / rec['fma_ms']:.3f}")
         recs[name] = rec
         del got, want
     torch.cuda.empty_cache()
@@ -1127,6 +1202,8 @@ def onthefly_case(c: TableCase, *, time_it: bool, equal_fused: bool):
         got = run()
         rec = compare(name, c.tag, got, run_plain(), c.dname)
         rec.update(B=c.B, dtype=c.dname, V=c.V, shape=c.shape)
+        if c.dtype == torch.float32:
+            scalar_gate(name, c.tag, got, run, rec, time_it=time_it)
         if equal_fused:
             same = bool(torch.equal(got, run_fused()))
             rec["equals_fused"] = same
@@ -2954,8 +3031,11 @@ def shard_kernels(B, dtype, V, *, seed, time_it: bool) -> dict:
                 xs = x[s * kloc:(s + 1) * kloc].contiguous()
                 got = local.fn(*ops, xs)
                 want = plain(*ops, xs, meta.l0s_t, B=B, tk=meta.tk)
-                r = compare(name, f"B={B} {dname} V={V} n={n} shard {s} "
-                            f"K/n={kloc}", got, want, dname)
+                tag = f"B={B} {dname} V={V} n={n} shard {s} K/n={kloc}"
+                r = compare(name, tag, got, want, dname)
+                if dtype == torch.float32:
+                    scalar_gate(name, tag, got, lambda: local.fn(*ops, xs),
+                                r, time_it=False)
                 if worst is None or r["max_err_vs_plain"] > \
                         worst["max_err_vs_plain"]:
                     worst = r
@@ -3179,13 +3259,20 @@ def sweep_vs_plain(B, dtype, lchunk, cands) -> dict:
         c = Case(B, dtype, V, seed=B + 10 * V + tk, tk=tk)
         if impl == "onthefly":
             tag = f"B={B:3d} {c.dname} V={V} tk={tk} K={c.shape[0]}"
-            recs = {name: compare(name, tag, kern(*c.args, x, B=B, tk=tk),
-                                  plain(*c.args, x, B=B), c.dname)
-                    for name, x, kern, plain in (
-                        ("dwt_onthefly", c.rhs, wr.dwt_onthefly,
-                         wr.dwt_onthefly_plain),
-                        ("idwt_onthefly", c.lhs, wr.idwt_onthefly,
-                         wr.idwt_onthefly_plain))}
+            recs = {}
+            for name, x, kern, plain in (
+                    ("dwt_onthefly", c.rhs, wr.dwt_onthefly,
+                     wr.dwt_onthefly_plain),
+                    ("idwt_onthefly", c.lhs, wr.idwt_onthefly,
+                     wr.idwt_onthefly_plain)):
+                run = functools.partial(kern, *c.args, x, B=B, tk=tk)
+                got = run()
+                recs[name] = compare(name, tag, got, plain(*c.args, x, B=B),
+                                     c.dname)
+                if dtype == torch.float32:
+                    scalar_gate(name, tag, got, run, recs[name],
+                                time_it=False)
+                del got
         elif lchunk is not None:
             recs = streaming_case(c, lchunk, "fp32", time_it=False)
         else:
@@ -4186,6 +4273,13 @@ def main() -> int:
     t_dense = repro_torch.plan(128, impl="dense")    # reused in phase 4c
     log(f"  plan(128, impl='dense') built in {time.perf_counter() - t0:.1f} s"
         f" (table {tuple(t_dense.soft_plan.d.shape)})")
+    # built now, while the build_plan memo holds t_dense's plan (the memo
+    # is bounded by bytes, and the 2.16 GB table alone exceeds its 2 GiB
+    # default, so the next plan evicts it): the two share one table
+    t_ragged = repro_torch.plan(128, impl="ragged", tl=16)
+    if t_ragged.soft_plan.d is not t_dense.soft_plan.d:
+        fail("plan(128, impl='ragged') does not share plan(128, "
+             "impl='dense')'s table")
     c = TableCase(t_dense, 8, seed=1281)
     trecs = table_case(c, 16, time_it=True)
     orecs = onthefly_case(c, time_it=True, equal_fused=True)
@@ -4210,7 +4304,6 @@ def main() -> int:
             sched[f"profile_{label}"] = profile(
                 repro_torch.plan(128, **kw), fs128,
                 ROOT / args.profile_out.replace(".txt", f"_{label}.txt"))
-    t_ragged = repro_torch.plan(128, impl="ragged", tl=16)  # t_dense's table
     # each table plan's peak is its own: only its plan and the input stay
     del t128, fs128, backs128
     free_plans()
@@ -4381,7 +4474,8 @@ def main() -> int:
             "more": {k: {kk: v.get(kk) for kk in
                          ("max_err_vs_plain", "ms", "plain_ms", "library_ms",
                           "bound_ms", "bound_by", "tflops", "over_library",
-                          "over_bound", "fused_ms", "fma_ms", "B", "dtype",
+                          "over_bound", "fused_ms", "fma_ms", "scalar_ms",
+                          "B", "dtype",
                           "V", "lchunk", "precision", "tl", "shape")
                          if kk in v}
                      for k, v in extra.items()},
@@ -4415,7 +4509,8 @@ def main() -> int:
                "tol_bf16": TOL_BF16,
                "recurrence_kernels": rec_kernels,
                "table_kernels": table_kernels,
-               "dmma_gates_b128": trecs["dmma_gates"],
+               "dmma_gates_b128": trecs["forward_gates"],
+               "forward_gates_f32_b64": trecs32["forward_gates"],
                "inverse_gates_b128": trecs["inverse_gates"],
                "inverse_gates_f32_b64": trecs32["inverse_gates"],
                "attention": attn, "attention_kernels": attn_kernels,

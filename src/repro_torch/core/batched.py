@@ -22,6 +22,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import os
 import weakref
 
 import numpy as np
@@ -31,7 +32,8 @@ from . import clusters as clusters_mod
 from . import quadrature, wigner
 
 __all__ = ["SoftPlan", "build_plan", "soft_plan_from_arrays",
-           "resolve_device", "plan_cache_stats", "clear_plan_cache",
+           "resolve_device", "plan_cache_stats", "plan_cache_bytes_limit",
+           "clear_plan_cache",
            "plan_memo", "plan_lstart", "shard_balanced_order",
            "shard_lstart",
            "bucket_boundaries_from_lstart", "bucket_boundaries",
@@ -174,16 +176,45 @@ def _torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
-# LRU memo of built plans, bounded in count like the planner's Transform
-# cache (a dense plan holds the full (K, L, J) Wigner table).
+# Byte-bounded LRU memo of built plans, as the reference's: a dense plan
+# holds the full (K, L, J) Wigner table on the device (2.16 GB at B = 128
+# f64), so a count bound would keep a B-sweep's tables resident.  Entries
+# are (plan, nbytes); a put evicts the least recently used plans while
+# more than one is held and the total exceeds $REPRO_PLAN_CACHE_BYTES (the
+# newest plan is always kept, even if it alone exceeds the bound).
 _PLAN_CACHE: collections.OrderedDict = collections.OrderedDict()
-_PLAN_CACHE_MAX = 16
-_PLAN_CACHE_STATS = {"hits": 0, "misses": 0}
+_PLAN_CACHE_DEFAULT_BYTES = 2 * 1024 ** 3
+_PLAN_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def plan_cache_bytes_limit() -> int:
+    """Memo bound in bytes; override with $REPRO_PLAN_CACHE_BYTES (the
+    reference reads the same variable)."""
+    return int(os.environ.get("REPRO_PLAN_CACHE_BYTES",
+                              _PLAN_CACHE_DEFAULT_BYTES))
+
+
+def _plan_nbytes(plan: SoftPlan) -> int:
+    """The bytes of a plan's tensors (numel * element_size)."""
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(plan, n) for n in PLAN_LEAVES)
+               if t is not None)
 
 
 def plan_cache_stats() -> dict:
-    """Hit / miss counters and size of the build_plan memo."""
-    return dict(_PLAN_CACHE_STATS, plans=len(_PLAN_CACHE))
+    """Counters and byte accounting of the build_plan memo."""
+    return dict(_PLAN_CACHE_STATS, plans=len(_PLAN_CACHE),
+                bytes=sum(n for _, n in _PLAN_CACHE.values()),
+                bytes_limit=plan_cache_bytes_limit())
+
+
+def _plan_cache_put(key, plan: SoftPlan) -> None:
+    _PLAN_CACHE[key] = (plan, _plan_nbytes(plan))
+    limit = plan_cache_bytes_limit()
+    while len(_PLAN_CACHE) > 1 and \
+            sum(n for _, n in _PLAN_CACHE.values()) > limit:
+        _PLAN_CACHE.popitem(last=False)
+        _PLAN_CACHE_STATS["evictions"] += 1
 
 
 def clear_plan_cache() -> None:
@@ -261,7 +292,8 @@ def build_plan(B: int, dtype=torch.float64, pad_to: int | None = None,
     table (d=None) -- no O(B^3) host or device array is touched; all
     other tables are identical to the dense build.
 
-    Plans are memoized by (B, dtype, pad_to, order, streaming, device);
+    Plans are memoized by (B, dtype, pad_to, order, streaming, device)
+    in a byte-bounded LRU ($REPRO_PLAN_CACHE_BYTES, :func:`plan_cache_stats`);
     a SoftPlan is frozen and its tensors are never written, so sharing
     is safe.
     """
@@ -274,15 +306,13 @@ def build_plan(B: int, dtype=torch.float64, pad_to: int | None = None,
     if hit is not None:
         _PLAN_CACHE.move_to_end(key)
         _PLAN_CACHE_STATS["hits"] += 1
-        return hit
+        return hit[0]
     _PLAN_CACHE_STATS["misses"] += 1
     arrays, Kp = plan_arrays(B, pad_to=pad_to, order=order,
                              streaming=streaming)
     plan = soft_plan_from_arrays(B, arrays, n_padded=Kp, plan_dtype=dtype,
                                  device=device)
-    _PLAN_CACHE[key] = plan
-    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
-        _PLAN_CACHE.popitem(last=False)
+    _plan_cache_put(key, plan)
     return plan
 
 

@@ -50,7 +50,7 @@ from repro_torch import obs
 __all__ = ["PRECISIONS", "PRECISION_ERROR_BOUNDS",
            "PRECISION_BOUND_EXTRAPOLATED", "FP32_ROUNDTRIP_BOUNDS",
            "SMEM_LIMIT_BYTES", "V_CANDIDATES", "V_RULE",
-           "lane_slice", "block_threads", "estimate_smem_bytes",
+           "f32_lanes", "lane_slice", "block_threads", "estimate_smem_bytes",
            "dense_smem_bytes", "table_bytes", "window_bytes",
            "estimate_batch_bytes", "pipeline_extra_bytes",
            "dense_table_host_bytes", "device_memory_bytes",
@@ -94,24 +94,33 @@ FP32_ROUNDTRIP_BOUNDS = {
 # Shared memory one block may use on Hopper (H100/H200): 227 KB.
 SMEM_LIMIT_BYTES = 232448
 
-# Kernel geometry, as in csrc/dwt_block.cuh: kWarp; f32 kCS lanes and
-# kLT degrees per round; f64 kMT degrees per round, kPad doubles of row
-# padding, kCS1024 lanes at J > 512.
-_WARP, _CS, _LT = 32, 32, 8
-_MT, _PAD, _CS1024 = 16, 4, 8
+# Kernel geometry, as in csrc/dwt_block.cuh: kWarp; kMT degrees per
+# round, kPad elements of row padding, f64 kCS1024 lanes at J > 512.
+_WARP, _MT, _PAD, _CS1024 = 32, 16, 4, 8
 
 V_CANDIDATES = (1, 2, 4, 8)
 V_RULE = ("widest V in (1, 2, 4, 8) whose batch buffers "
           "(estimate_batch_bytes) fit half the device memory")
 
 
+def f32_lanes(J: int, C2: int, *, inverse: bool = False) -> int:
+    """Lanes a thread of the f32 recurrence body holds (``f32_lanes`` in
+    ``csrc/dwt_block.cuh``): 1 for C2 <= 32 and in the 1024-thread
+    forward (J > 512), 4 in the inverse for C2 > 64 at J <= 128 (blocks
+    of at most 128 threads, which keep 255 registers), else 2."""
+    if C2 <= 32 or (J > 512 and not inverse):
+        return 1
+    return 4 if inverse and J <= 128 and C2 > 64 else 2
+
+
 def lane_slice(J: int, C2: int, itemsize: int, *,
                inverse: bool = False) -> int:
     """Output lanes of one recurrence-kernel block (``lane_slice`` in
     ``csrc/dwt_block.cuh``): f64 32, or 16 when C2 <= 16, and 8 in the
-    1024-thread forward (J > 512); f32 always 32."""
+    1024-thread forward (J > 512); f32 32 lanes a thread times
+    :func:`f32_lanes`, i.e. 32, 64 or (the inverse) 128."""
     if itemsize != 8:
-        return _CS
+        return _WARP * f32_lanes(J, C2, inverse=inverse)
     if J > 512 and not inverse:
         return _CS1024
     return 16 if C2 <= 16 else 32
@@ -119,74 +128,70 @@ def lane_slice(J: int, C2: int, itemsize: int, *,
 
 def block_threads(J: int, itemsize: int, *, inverse: bool) -> int:
     """Threads of one recurrence-kernel block (``block_threads``): one per
-    j in whole warps; the f64 inverse splits J > 512 into blocks of 512."""
+    j in whole warps; the inverse (f64 and f32) splits J > 512 into
+    blocks of 512."""
     nj = -(-J // _WARP) * _WARP
-    return 512 if itemsize == 8 and inverse and nj > 512 else nj
+    return 512 if inverse and nj > 512 else nj
 
 
 def estimate_smem_bytes(J: int, itemsize: int, *, inverse: bool,
                         C2: int = 32, L: int | None = None) -> int:
     """Dynamic shared memory of one recurrence-kernel block at (J, C2) that
     marches L degrees (default J // 2 = B; a streaming forward block marches
-    one l-chunk).  f64: kMT = 16 staged Wigner rows over the block's
-    threads (:func:`block_threads`), in two buffers up to 512 threads; the
-    inverse's double-buffered lhs rows (2 x kMT x (lane slice + 4)), the
-    forward's per-warp partial sums (warps x kMT x (lane slice + 2)) or, at
-    1024 threads, its copy of its rhs slice (J x lane slice); L (A, mu, C)
-    triples.  f32: kLT = 8 staged rows, the forward's per-warp
-    partial sums (the inverse's staged lhs rows instead) and kLT triples.
+    one l-chunk): kMT = 16 staged Wigner rows over the block's threads
+    (:func:`block_threads`) plus kPad = 4, L (A, mu, C) triples, and
+
+      * f64: the rows in two buffers up to 512 threads; the inverse's
+        double-buffered lhs rows (2 x kMT x (lane slice + 4)), the
+        forward's per-warp partial sums (warps x kMT x (lane slice + 2))
+        or, at 1024 threads, its copy of its rhs slice (J x lane slice);
+      * f32: the rows in two buffers; the inverse's double-buffered lhs
+        rows (2 x kMT x lane slice) or the forward's per-warp partial sums
+        (warps x kMT x lane slice).
+
     The fused, streaming and on-the-fly kernels run the same block body
     (``csrc/dwt_block.cuh``; ``dwt_fused_smem_bytes`` /
     ``streaming_smem_bytes``; the on-the-fly kernels are instantiations in
     ``csrc/dwt_fused.cu``).  The default C2 takes the widest lane slice J
-    allows."""
-    nw = -(-J // _WARP)
-    nj = nw * _WARP
+    allows in f64 (32), the narrowest in f32 (32)."""
+    cs = lane_slice(J, C2, itemsize, inverse=inverse)
+    nt = block_threads(J, itemsize, inverse=inverse)
+    L = J // 2 if L is None else L
     if itemsize == 8:
-        cs = lane_slice(J, C2, itemsize, inverse=inverse)
-        nt = block_threads(J, itemsize, inverse=inverse)
         rows = (2 if nt <= 512 else 1) * _MT * (nt + _PAD)
         other = 2 * _MT * (cs + _PAD) if inverse else \
             (nt // _WARP * _MT * (cs + 2) if nt <= 512 else nt * cs)
-        return 8 * (rows + other) + 3 * 8 * (J // 2 if L is None else L)
-    extra = _LT * _CS if inverse else nw * _LT * _CS
-    return itemsize * (_LT * nj + extra) + 3 * itemsize * _LT
+        return 8 * (rows + other) + 3 * 8 * L
+    other = 2 * _MT * cs if inverse else nt // _WARP * _MT * cs
+    return 4 * (2 * _MT * (nt + _PAD) + other) + 3 * 4 * L
 
 
-# Block geometry of csrc/dwt_dense.cu.  The scalar body (the f32
-# forwards): 16 x 16 threads, kKC = 16 contraction indices staged per
-# round.  The ring bodies (f64 on the tensor cores, the f32 inverse): 128
-# output rows by 16 or 64 lanes, a ring of 3 stages of 16 contraction
-# indices; the f64 rows padded by 4 doubles, the f32 rows unpadded.
-_DENSE_T, _DENSE_KC = 16, 16
+# Block geometry of csrc/dwt_dense.cu: the ring bodies (f64 on the tensor
+# cores, the f32 forwards and inverse on the FMA pipes) take 128 output
+# rows by 16 or 64 lanes, a ring of 3 stages of 16 contraction indices;
+# the f64 rows padded by 4 doubles, the f32 rows unpadded (the f32
+# forwards' 64-row blocks take the same stage layout).
 _RING_BR, _RING_KC, _RING_STAGES, _RING_PAD = 128, 16, 3, 4
 
 
 def dense_smem_bytes(span: int, C2: int, itemsize: int, *,
                      inverse: bool = False) -> int:
-    """Shared memory of one dense / ragged block, in bytes.
+    """Shared memory of one dense / ragged block, in bytes (all dynamic;
+    the same for every span).
 
-    The ring bodies (all dynamic; the same for every span), with
     BC = 16 lanes if C2 <= 16, else 64: 3 stages, each a table chunk and
     an operand chunk of 16 rows by BC.  The table chunk is 128 rows of l
-    by 16 j in the f64 forward, 16 rows of l by 128 j in the inverses.
-    f64 rows are padded by 4 doubles (the tensor-core fragment loads);
-    the f32 inverse's are not (at odd B it runs the scalar body, which
-    takes less).  The f32 forwards (the scalar body, all
-    static): the staged table chunk (kKC x (BR + 1)) and operand chunk
-    (kKC x BC), where a unit of ``span`` output rows (L, or tl ragged)
-    takes BR = 16 rows if span <= 16, else 64, and C2 lanes BC = 16 if
-    C2 <= 16, else 64."""
+    by 16 j in the f64 forward, 16 rows of l by 128 j in the inverses,
+    and 16 j by 128 l in the f32 forwards (stored transposed).  f64 rows
+    are padded by 4 doubles (the tensor-core fragment loads); the f32
+    rows are not (at odd B the f32 kernels run the scalar body, which
+    takes less)."""
     bc = 16 if C2 <= 16 else 64
     if itemsize == 8:
         table = _RING_KC * (_RING_BR + _RING_PAD) if inverse else \
             _RING_BR * (_RING_KC + _RING_PAD)
         return 8 * _RING_STAGES * (table + _RING_KC * (bc + _RING_PAD))
-    if inverse:
-        return 4 * _RING_STAGES * _RING_KC * (_RING_BR + bc)
-    br = _DENSE_T * (1 if span <= _DENSE_T else 4)
-    bc = _DENSE_T * (1 if C2 <= _DENSE_T else 4)
-    return itemsize * _DENSE_KC * ((br + 1) + bc)
+    return 4 * _RING_STAGES * _RING_KC * (_RING_BR + bc)
 
 
 def table_bytes(B: int, K: int, itemsize: int) -> int:

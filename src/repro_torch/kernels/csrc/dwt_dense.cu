@@ -88,22 +88,45 @@
 //    need J and C2 multiples of 4 and 16-byte boundaries; other shapes
 //    (odd B) run the scalar body, with the same bits.
 //
-//  * f32 forwards (dwt_dense_f32, dwt_ragged_f32): the scalar body on the
-//    FMA pipes (dense_kernel).  A block owns an output tile of one
-//    cluster: BR = 16 TR rows by BC = 16 TQ lanes, 256 threads, thread
-//    (ty, tx) the TR x TQ elements rows ty + 16 i, lanes tx + 16 q.  It
-//    walks the contraction axis in rounds of kKC = 16: each round stages
-//    the table chunk, always as As[t][r], and the operand chunk Bs[t][c]
-//    in shared memory, then every thread adds a(t, r) * b(t, c) into its
-//    registers.  What bounds it: two shared-memory reads per four fma at
-//    TQ = TR = 4, single-buffered staging, so the pipes and the
-//    shared-memory reads, not the bytes.  The blocks of one cluster are
-//    adjacent in the grid.  The body also computes the inverse, reading
-//    the table chunk along its rows (d^T): the f32 inverse where the
-//    16-byte copies do not fit.  It stays exported as the _fma symbols
-//    (dwt_dense_f64_fma, dwt_ragged_f64_fma, idwt_dense_f64_fma,
-//    idwt_dense_f32_fma): the bit reference of the other bodies on the
-//    card, called by no wrapper.
+//  * f32 forwards (dwt_dense_f32, dwt_ragged_f32): the register-blocked
+//    forward body (dense_fwd_f32), the forward counterpart of
+//    dense_inv_f32.  A block owns BR = 128 rows of l (64 where L leaves
+//    half a 128-row tile idle, as at B = 64) by BC = 64 lanes (16 when
+//    C2 <= 16); thread (ty, tx) keeps an 8 x 4 micro-tile, rows 4 ty + i
+//    and BR / 2 + 4 ty + i, lanes 4 tx .. 4 tx + 3, and per j reads two
+//    float4 of the table chunk and one of the rhs chunk for 32 fma.  The
+//    forward contracts over j, along which the table is contiguous, so
+//    its chunk must be transposed on the way into shared memory, which
+//    cp.async cannot do for 4-byte elements: each thread loads its 16-byte
+//    pieces of the chunk after next into registers (a warp covers 32
+//    consecutive l at one j quad) while the current chunk is contracted,
+//    and stores each as four floats of four rows of As[j][l], 32
+//    consecutive words a warp, so neither the stores nor the float4
+//    fragment reads hit a bank twice (no padding).  The rhs chunks come
+//    through the 3-stage cp.async ring.  The ragged entry walks the work
+//    list as dense_dmma does: a block per run of a cluster tile's
+//    l-tiles, so its rhs is staged once per lane tile.  Each output is
+//    one fmaf chain over j ascending from +0.  What bounds it: at B = 64,
+//    V = 8 the 0.27 GB of table, rhs and output take 0.081 ms at
+//    3.35 TB/s against 0.065 ms of FMA pipes: bytes, closely followed by
+//    the pipes.  The 16-byte loads need J and C2 multiples of 4 and
+//    16-byte boundaries; other shapes (odd B) run the scalar body, with
+//    the same bits.  Measured at B = 64 f32 V = 8 (chip_smoke.py phase
+//    3d, NVIDIA H100 80GB HBM3, 700.00 W): dwt_dense 0.155 ms, dwt_ragged
+//    0.139 ms, against the scalar body's 0.383 / 0.327 and torch.bmm's
+//    0.146 / 0.143 (PERF.md §6).
+//
+//  * The scalar body on the FMA pipes (dense_kernel): a block owns an
+//    output tile of one cluster, BR = 16 TR rows by BC = 16 TQ lanes, 256
+//    threads, thread (ty, tx) the TR x TQ elements rows ty + 16 i, lanes
+//    tx + 16 q, in rounds of kKC = 16 contraction indices staged in
+//    shared memory (As[t][r], Bs[t][c]); two shared-memory reads per four
+//    fma at TQ = TR = 4.  It computes the forwards and, reading the table
+//    chunk along its rows (d^T), the inverse; the f32 kernels run it where
+//    the 16-byte copies do not fit.  It stays exported as the _fma
+//    symbols (dwt_dense_f64_fma, dwt_ragged_f64_fma, dwt_dense_f32_fma,
+//    dwt_ragged_f32_fma, idwt_dense_f64_fma, idwt_dense_f32_fma): the bit
+//    reference of the other bodies on the card, called by no wrapper.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -551,6 +574,162 @@ dense_inv_f32(const float* __restrict__ d, const float* __restrict__ x, float* _
 }
 
 // ---------------------------------------------------------------------------
+// f32 forwards: the register-blocked body
+// ---------------------------------------------------------------------------
+
+// y (K, L, C2) = d rhs, rhs (K, J, C2), on the work list's runs when
+// kRagged: every output one fmaf chain over j ascending from +0.  A block
+// owns BR rows of l (128, or 64 when that covers L with fewer idle rows)
+// by BC lanes; thread (ty, tx) keeps rows 4 ty + i and BR / 2 + 4 ty + i
+// (i < 4) at lanes 4 tx .. 4 tx + 3.  A stage of the F32Ring layout holds
+// As[j][l] (16 x BR of its 16 x 128) and Bs[j][c] (16 x BC).  The table
+// chunk arrives transposed: each thread loads its 16-byte pieces of the
+// chunk after next (row l = i % BR, j quad i / BR, so a warp covers 32
+// consecutive l) into registers while the current chunk is contracted, and
+// stores them as four floats of four rows of As -- 32 consecutive l a
+// warp, so no bank is hit twice.  The rhs chunks come through the 3-stage
+// cp.async ring.  J and C2 are multiples of 4.
+template <int BR, int BC>
+struct F32Fwd {
+  static constexpr int TX = BC / 4;          // lane threads
+  static constexpr int TY = BR / 8;          // row threads
+  static constexpr int kThreads = TX * TY;
+  static constexpr int kAQuads = BR * kRingKC / 4;   // 16-byte pieces of a table chunk
+  static constexpr int kAPer = kAQuads / kThreads;   // ... a thread
+  static constexpr int kBQuads = kRingKC * BC / 4;
+  static constexpr int kBPer = kBQuads / kThreads;
+  static_assert(kAPer * kThreads == kAQuads && kBPer * kThreads == kBQuads, "whole passes");
+  static_assert(BR <= kF32BR, "a stage holds 128 rows of the table chunk");
+};
+
+template <int BR, int BC, bool kRagged>
+__global__ void __launch_bounds__(F32Fwd<BR, BC>::kThreads)
+dense_fwd_f32(const float* __restrict__ d, const float* __restrict__ x, const int* __restrict__ kk,
+              const int* __restrict__ ll, const int* __restrict__ perm, float* __restrict__ y,
+              int G, int L, int J, int C2, int tk, int tl) {
+  using F = F32Fwd<BR, BC>;
+  using R = F32Ring<BC>;
+  extern __shared__ __align__(16) float fring[];
+
+  const int nC = (C2 + BC - 1) / BC;
+  const int nR = (L + BR - 1) / BR;
+  long long bid = blockIdx.x;
+  const int ct = int(bid % nC);
+  bid /= nC;
+  const int rt = int(bid % nR);
+  const int unit = int(bid / nR);
+
+  int kl = unit, rbeg = 0, rend = L;
+  if constexpr (kRagged) {
+    const int g = unit / tk;
+    const int kt = kk[g], lt = ll[g];
+    if (g > 0 && kk[g - 1] == kt && ll[g - 1] + 1 == lt) return;  // inside a run
+    kl = kt * tk + unit % tk;
+    rbeg = lt * tl;
+    rend = min((lt + run_length(kk, ll, g, G, kt, lt)) * tl, L);
+  }
+  const int r0 = rbeg + rt * BR;
+  if (r0 >= rend) return;
+  const int row = perm ? perm[kl] : kl;
+  const int c0 = ct * BC;
+  const float* dk = d + size_t(row) * L * J;
+  const float* xk = x + size_t(row) * J * C2;
+
+  // this thread's table pieces: row r0 + (i % BR), j quad i / BR, for
+  // i = threadIdx.x + kThreads p; zero past rend and J
+  float4 areg[F::kAPer];
+  const auto load_a = [&](int t0) {
+#pragma unroll
+    for (int p = 0; p < F::kAPer; ++p) {
+      const int i = threadIdx.x + F::kThreads * p;
+      const int l = r0 + i % BR, j = t0 + 4 * (i / BR);
+      areg[p] = l < rend && j < J ? *reinterpret_cast<const float4*>(dk + size_t(l) * J + j)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const auto store_a = [&](int s) {
+    float* as = fring + s * R::kStage;
+#pragma unroll
+    for (int p = 0; p < F::kAPer; ++p) {
+      const int i = threadIdx.x + F::kThreads * p;
+      float* a = as + (4 * (i / BR)) * BR + i % BR;
+      a[0] = areg[p].x;
+      a[BR] = areg[p].y;
+      a[2 * BR] = areg[p].z;
+      a[3 * BR] = areg[p].w;
+    }
+  };
+  const auto load_b = [&](int s, int t0) {
+    float* bs = fring + s * R::kStage + R::kAElems;
+#pragma unroll
+    for (int p = 0; p < F::kBPer; ++p) {
+      const int i = threadIdx.x + F::kThreads * p;
+      const int t = i / F::TX, c = c0 + 4 * (i % F::TX);
+      const bool ok = t0 + t < J && c < C2;
+      ring_copy(bs + 4 * i, ok ? xk + size_t(t0 + t) * C2 + c : x, ok);
+    }
+  };
+
+  const int tx = threadIdx.x % F::TX, ty = threadIdx.x / F::TX;
+  float acc[2][4][4];  // [half][row i][lane q]: row r0 + BR / 2 half + 4 ty + i
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[h][i][q] = 0.f;
+
+  const int nk = (J + kRingKC - 1) / kRingKC;
+  load_a(0);
+  store_a(0);
+  if (nk > 1) load_a(kRingKC);
+  load_b(0, 0);
+  ring_commit();
+  if (nk > 1) load_b(1, kRingKC);
+  ring_commit();
+  for (int kc = 0; kc < nk; ++kc) {
+    ring_wait<kStages - 2>();  // rhs chunk kc has landed (this thread's copies)
+    __syncthreads();           // ... everyone's, and table chunk kc; stage (kc + 2) % 3 is free
+    if (kc + 1 < nk) store_a((kc + 1) % kStages);
+    if (kc + 2 < nk) {
+      load_a((kc + 2) * kRingKC);
+      load_b((kc + 2) % kStages, (kc + 2) * kRingKC);
+    }
+    ring_commit();
+    const float* as = fring + (kc % kStages) * R::kStage + 4 * ty;
+    const float* bs = fring + (kc % kStages) * R::kStage + R::kAElems + 4 * tx;
+#pragma unroll
+    for (int t = 0; t < kRingKC; ++t) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + t * BR);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + t * BR + BR / 2);
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + t * BC);
+      const float a[2][4] = {{a0.x, a0.y, a0.z, a0.w}, {a1.x, a1.y, a1.z, a1.w}};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[h][i][q] = fmaf(a[h][i], b[q], acc[h][i][q]);
+    }
+  }
+  ring_wait<0>();  // no copy outlives the block
+
+  const int c = c0 + 4 * tx;
+  if (c >= C2) return;
+  float* yk = y + size_t(row) * L * C2 + c;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = r0 + BR / 2 * h + 4 * ty + i;
+      if (l < rend)
+        *reinterpret_cast<float4*>(yk + size_t(l) * C2) =
+            make_float4(acc[h][i][0], acc[h][i][1], acc[h][i][2], acc[h][i][3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -654,6 +833,34 @@ cudaError_t pick_inv_f32(const Args& a) {
   return launch_inv_f32<64>(a);
 }
 
+template <int BR, int BC, bool kRagged>
+cudaError_t launch_fwd_f32(const Args& a) {
+  const auto kern = dense_fwd_f32<BR, BC, kRagged>;
+  const long long blocks = (long long)a.units * ((a.nrows + BR - 1) / BR) * ((a.C2 + BC - 1) / BC);
+  if (blocks == 0) return cudaSuccess;
+  const size_t smem = F32Ring<BC>::kSmem;
+  const cudaError_t err = prepare_ring(kern, blocks, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<unsigned(blocks), F32Fwd<BR, BC>::kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.d), static_cast<const float*>(a.x), a.kk, a.ll, a.perm,
+      static_cast<float*>(a.y), a.units / a.tk, a.nrows, a.J, a.C2, a.tk, a.tl);
+  return cudaGetLastError();
+}
+
+// Rows of an f32 forward block: 64 where L leaves more than half of a
+// 128-row tile idle (L <= 64, or L mod 128 in 1..64), else 128; lanes: 64,
+// or 16 for one transform.  The scalar body where the 16-byte loads do not
+// fit the shape (J or C2 not a multiple of 4, or an operand off a 16-byte
+// boundary).  Every body gives the same bits.
+template <bool kRagged>
+cudaError_t pick_fwd_f32(const Args& a) {
+  if (!aligned16(a) || a.J % 4 || a.C2 % 4) return pick<float, false, kRagged>(a);
+  const bool br64 = a.nrows % kF32BR != 0 && a.nrows % kF32BR <= kF32BR / 2;
+  if (a.C2 <= 16)
+    return br64 ? launch_fwd_f32<64, 16, kRagged>(a) : launch_fwd_f32<128, 16, kRagged>(a);
+  return br64 ? launch_fwd_f32<64, 64, kRagged>(a) : launch_fwd_f32<128, 64, kRagged>(a);
+}
+
 template <typename Kern>
 long long static_smem(Kern kern) {
   cudaFuncAttributes attr;
@@ -664,17 +871,6 @@ template <typename Kern>
 long long plus_static(Kern kern, size_t dynamic) {
   const long long st = static_smem(kern);
   return st < 0 ? -1 : st + (long long)dynamic;
-}
-
-// Shared memory of the scalar variant a launch with this span and C2
-// takes, as the compiled kernel reports it (all static).
-template <typename T, bool kTrans>
-long long smem_of(int span, int C2) {
-  if (span <= kTY)
-    return C2 <= kTX ? static_smem(dense_kernel<T, 1, 1, kTrans, false>)
-                     : static_smem(dense_kernel<T, 1, 4, kTrans, false>);
-  return C2 <= kTX ? static_smem(dense_kernel<T, 4, 1, kTrans, false>)
-                   : static_smem(dense_kernel<T, 4, 4, kTrans, false>);
 }
 
 // The DMMA body's: static as compiled plus the ring's dynamic bytes.
@@ -698,7 +894,7 @@ int dense(bool inverse, const void* d, const void* x, void* y, int K, int L, int
   if constexpr (sizeof(T) == 8)
     return int(inverse ? pick_dmma<true, false>(a) : pick_dmma<false, false>(a));
   else
-    return int(inverse ? pick_inv_f32(a) : pick<T, false, false>(a));
+    return int(inverse ? pick_inv_f32(a) : pick_fwd_f32<false>(a));
 }
 
 template <typename T>
@@ -709,9 +905,11 @@ int ragged(const void* d, const void* rhs, const void* kk, const void* ll, const
   Args a{d, rhs, static_cast<const int*>(kk), static_cast<const int*>(ll),
          static_cast<const int*>(perm), out, G * tk, L, J, J, C2, tk, tl,
          static_cast<cudaStream_t>(stream)};
+  if (fma) return int(pick<T, false, true>(a));
   if constexpr (sizeof(T) == 8)
-    if (!fma) return int(pick_dmma<false, true>(a));
-  return int(pick<T, false, true>(a));
+    return int(pick_dmma<false, true>(a));
+  else
+    return int(pick_fwd_f32<true>(a));
 }
 
 }  // namespace
@@ -765,6 +963,17 @@ int dwt_ragged_f64_fma(const void* d, const void* rhs, const void* kk, const voi
   return ragged<double>(d, rhs, kk, ll, perm, out, G, L, J, C2, tk, tl, stream, true);
 }
 
+int dwt_dense_f32_fma(const void* d, const void* rhs, void* out, int K, int L, int J, int C2,
+                      void* stream) {
+  return dense<float>(false, d, rhs, out, K, L, J, C2, stream, true);
+}
+
+int dwt_ragged_f32_fma(const void* d, const void* rhs, const void* kk, const void* ll,
+                       const void* perm, void* out, int G, int L, int J, int C2, int tk, int tl,
+                       void* stream) {
+  return ragged<float>(d, rhs, kk, ll, perm, out, G, L, J, C2, tk, tl, stream, true);
+}
+
 int idwt_dense_f64_fma(const void* d, const void* lhs, void* g, int K, int L, int J, int C2,
                        void* stream) {
   return dense<double>(true, d, lhs, g, K, L, J, C2, stream, true);
@@ -777,12 +986,14 @@ int idwt_dense_f32_fma(const void* d, const void* lhs, void* g, int K, int L, in
 
 // Shared memory of one block, in bytes (-1 on error), for a launch whose
 // unit covers `span` output rows (L forward, J inverse, tl ragged) and C2
-// lanes: the DMMA body's static plus dynamic figure (f64), the f32
-// inverse's likewise, or the scalar body's static figure as compiled (the
-// f32 forwards); kernels/autotune.py's estimate must agree.
+// lanes: the ring bodies' static plus dynamic figure, f64 (DMMA) and f32
+// (the register-blocked forwards, whose 64-row blocks take the 128-row
+// stage layout, and inverse); kernels/autotune.py's estimate must agree.
 long long dwt_dense_smem_bytes(int span, int C2, int itemsize, int inverse) {
   if (itemsize == 8) return inverse ? smem_dmma<true>(C2) : smem_dmma<false>(C2);
-  if (!inverse) return smem_of<float, false>(span, C2);
+  if (!inverse)
+    return C2 <= 16 ? plus_static(dense_fwd_f32<128, 16, false>, F32Ring<16>::kSmem)
+                    : plus_static(dense_fwd_f32<128, 64, false>, F32Ring<64>::kSmem);
   return C2 <= 16 ? plus_static(dense_inv_f32<16>, F32Ring<16>::kSmem)
                   : plus_static(dense_inv_f32<64>, F32Ring<64>::kSmem);
 }

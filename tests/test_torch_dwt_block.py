@@ -305,28 +305,42 @@ def test_emulated_schedule_equals_plain_version_within_tolerance():
 
 def test_lane_slice_and_shared_memory_rule():
     """f64 blocks take 32 lanes, 16 when C2 <= 16, 8 in the 1024-thread
-    forward; the f64 inverse splits J > 512 into blocks of 512 threads;
-    f32 blocks take 32 lanes and one thread per j.  Every f64 block up to
-    J = 1024 fits Hopper's 227 KB with its rows double buffered up to 512
-    threads, two 256-thread blocks fit one SM (228 KB), and the f32
-    figure is the scalar body's (kLT = 8 rows, per-warp partial sums or
-    staged lhs rows, kLT coefficient triples)."""
+    forward; the inverse (f64 and f32) splits J > 512 into blocks of 512
+    threads; f32 blocks take 32 lanes a thread times 1 (C2 <= 32, and the
+    1024-thread forward), 4 (the inverse, C2 > 64 at J <= 128) or 2, one
+    thread per j.
+    Every block up to J = 1024 fits Hopper's 227 KB (f64 rows double
+    buffered up to 512 threads, f32 rows always), two 256-thread f64
+    blocks fit one SM (228 KB), and the f32 figure is the register-blocked
+    body's (two buffers of kMT = 16 rows, per-warp partial sums or two
+    buffers of staged lhs rows, L coefficient triples)."""
     assert [autotune.lane_slice(256, c2, 8) for c2 in (16, 48, 128)] == \
         [16, 32, 32]
     assert autotune.lane_slice(1024, 16, 8) == 8
     assert autotune.lane_slice(1024, 128, 8, inverse=True) == 32
-    assert {autotune.lane_slice(J, c2, 4, inverse=inv) for J in (8, 256, 1024)
-            for c2 in (16, 128) for inv in (False, True)} == {32}
+    f32_cs = {(J, c2, inv): autotune.lane_slice(J, c2, 4, inverse=inv)
+              for J in (8, 64, 128, 256, 1024) for c2 in (16, 48, 128)
+              for inv in (False, True)}
+    for (J, c2, inv), cs in f32_cs.items():
+        want = 32 if c2 <= 32 or (J > 512 and not inv) else \
+            128 if inv and J <= 128 and c2 > 64 else 64
+        assert cs == want == 32 * autotune.f32_lanes(J, c2, inverse=inv)
+    assert f32_cs[128, 128, True] == 128
+    assert f32_cs[128, 128, False] == f32_cs[256, 128, False] == \
+        f32_cs[1024, 128, True] == 64
+    assert f32_cs[1024, 128, False] == f32_cs[64, 16, True] == 32
     assert [autotune.block_threads(J, 8, inverse=True)
             for J in (8, 256, 1024)] == [32, 256, 512]
     assert autotune.block_threads(1024, 8, inverse=False) == 1024
-    assert autotune.block_threads(1024, 4, inverse=True) == 1024
-    for J in (8, 256, 512, 1024):
+    assert autotune.block_threads(1024, 4, inverse=True) == 512
+    assert autotune.block_threads(1024, 4, inverse=False) == 1024
+    for J in (8, 64, 128, 256, 512, 1024):
         nj = -(-J // 32) * 32
         for inverse in (False, True):
             nt = autotune.block_threads(J, 8, inverse=inverse)
+            assert nt == autotune.block_threads(J, 4, inverse=inverse)
             bufs = 2 if nt <= 512 else 1
-            for C2 in (16, 128):
+            for C2 in (16, 48, 128):
                 f64 = autotune.estimate_smem_bytes(J, 8, inverse=inverse,
                                                    C2=C2)
                 cs = autotune.lane_slice(J, C2, 8, inverse=inverse)
@@ -338,8 +352,19 @@ def test_lane_slice_and_shared_memory_rule():
                 assert autotune.estimate_smem_bytes(
                     J, 8, inverse=inverse, C2=C2, L=4) == \
                     f64 - 24 * (J // 2 - 4)
-            f32 = autotune.estimate_smem_bytes(J, 4, inverse=inverse)
-            assert f32 == 4 * (8 * nj + (8 * 32 if inverse
-                                         else nj // 32 * 8 * 32)) + 12 * 8
+                f32 = autotune.estimate_smem_bytes(J, 4, inverse=inverse,
+                                                   C2=C2)
+                cs = autotune.lane_slice(J, C2, 4, inverse=inverse)
+                other = 2 * 16 * cs if inverse else nt // 32 * 16 * cs
+                assert f32 == 4 * (2 * 16 * (nt + 4) + other) \
+                    + 12 * (J // 2)
+                assert f32 <= autotune.SMEM_LIMIT_BYTES
+                assert autotune.estimate_smem_bytes(
+                    J, 4, inverse=inverse, C2=C2, L=1) == \
+                    f32 - 12 * (J // 2 - 1)
+            assert nt == (512 if inverse and nj > 512 else nj)
+    # the largest f32 block: the 1024-thread forward at B = 512
+    assert autotune.estimate_smem_bytes(1024, 4, inverse=False,
+                                        C2=128) == 203264
     assert 2 * (autotune.estimate_smem_bytes(256, 8, inverse=False) + 1024) \
         <= 233472

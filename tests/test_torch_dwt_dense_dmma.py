@@ -292,3 +292,24 @@ def test_ring_shared_memory_rule():
     # two blocks an SM
     assert 2 * autotune.dense_smem_bytes(128, 128, 8) == 175104 <= \
         autotune.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("J", [8, 64, 128, 256, 1024])
+@pytest.mark.parametrize("C2", [16, 48, 128])
+def test_f32_forward_shared_memory_rule(J, C2):
+    """The f32 forwards' ring (csrc/dwt_dense.cu, dense_fwd_f32): 3 stages
+    of a table chunk stored transposed, 16 j x 128 l (a 64-row block uses
+    the same layout), and a 16 x BC rhs chunk, unpadded floats; the same
+    for every span (L = J / 2 dense, tl ragged) and equal to the f32
+    inverse's.  Six 64-lane blocks and eight 16-lane blocks fit an SM's
+    shared memory."""
+    bc = kernel_lanes(C2)
+    want = 4 * 3 * 16 * (128 + bc)
+    for span in (J // 2, 2, 16, max(J // 4, 1)):
+        assert autotune.dense_smem_bytes(span, C2, 4) == want == \
+            autotune.dense_smem_bytes(span, C2, 4, inverse=True)
+    assert (6 if bc == 64 else 8) * want <= autotune.SMEM_LIMIT_BYTES
+    B = J // 2
+    smem = autotune.schedule_smem_bytes("dense", B, C2 // 16, 4)
+    assert smem == want == autotune.schedule_smem_bytes(
+        "ragged", B, C2 // 16, 4, tl=max(B // 4, 1))
