@@ -1,0 +1,7 @@
+"""Share (%) of the forward calls' host time in which no device operation
+ran."""
+from bench import devtrace
+
+
+def read(view):
+    return devtrace.idle(view, "forward")
