@@ -16,6 +16,14 @@ Every stage takes optional leading batch dimensions: a stack of V
 transforms is a leading (V, ...) axis, and a batch-aware ``dwt_fn``
 (:func:`repro_torch.kernels.ops.make_dwt_fn` with ``batch=V``) contracts
 all V in one kernel launch.
+
+Each call is traced (:func:`repro_torch.obs.stage`, recorded only while
+tracing is on) as stages named ``so3.<forward|inverse>.<stage>`` that
+tile its device work without overlap: ``fft`` (the grid FFTs and their
+per-lane stacks), ``gather`` (member bins into the DWT's operand, or
+coefficients into the iDWT's), ``dwt`` (the contraction) and ``scatter``
+(its result into coefficients, or into FFT bins); in a slab loop the
+stages repeat.  ``Transform._batch`` adds ``lanes``.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import weakref
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 from . import clusters as clusters_mod
 from . import quadrature, wigner
@@ -483,10 +493,11 @@ def fft_synthesis(gbin: torch.Tensor) -> torch.Tensor:
 GRID_N_SLABS = 4
 
 
+@functools.lru_cache(maxsize=64)
 def _slab_bounds(J: int, n_slabs: int = GRID_N_SLABS):
     cuts = np.linspace(0, J, min(n_slabs, J) + 1).astype(int)
-    return [(int(cuts[i]), int(cuts[i + 1])) for i in range(len(cuts) - 1)
-            if cuts[i] < cuts[i + 1]]
+    return tuple((int(cuts[i]), int(cuts[i + 1]))
+                 for i in range(len(cuts) - 1) if cuts[i] < cuts[i + 1])
 
 
 @_per_grid
@@ -515,19 +526,25 @@ def streamed_rhs(plan: SoftPlan, f: torch.Tensor) -> torch.Tensor:
     (..., K, J, C, 2) buffer, with O((2B)^2 * slab) intermediates."""
     J = 2 * plan.B
     K, C = plan.gather_m.shape
+    dev = plan.device
     rhs = torch.empty(f.shape[:-3] + (K, J, C, 2), dtype=plan.dtype,
                       device=f.device)
     for j0, j1 in _slab_bounds(J):
-        S_direct = fft_analysis_slab(f, j0, j1)
-        direct = _at_members(plan, S_direct)
-        del S_direct
-        S_mirror = fft_analysis_slab(f, J - j1, J - j0)
-        mirror = _at_members(plan, S_mirror).flip(-1)
-        del S_mirror
-        Sm = torch.where(plan.reflected[..., None], mirror, direct)
-        del direct, mirror
-        rhs[..., j0:j1, :, :] = _rhs_from_members(plan, Sm, plan.w[j0:j1])
-        del Sm
+        with obs.stage("so3.forward.fft", dev):
+            S_direct = fft_analysis_slab(f, j0, j1)
+        with obs.stage("so3.forward.gather", dev):
+            direct = _at_members(plan, S_direct)
+            del S_direct
+        with obs.stage("so3.forward.fft", dev):
+            S_mirror = fft_analysis_slab(f, J - j1, J - j0)
+        with obs.stage("so3.forward.gather", dev):
+            mirror = _at_members(plan, S_mirror).flip(-1)
+            del S_mirror
+            Sm = torch.where(plan.reflected[..., None], mirror, direct)
+            del direct, mirror
+            rhs[..., j0:j1, :, :] = _rhs_from_members(plan, Sm,
+                                                      plan.w[j0:j1])
+            del Sm
     return rhs
 
 
@@ -537,17 +554,20 @@ def streamed_synthesis(plan: SoftPlan, gc: torch.Tensor) -> torch.Tensor:
     (..., 2B, 2B, 2B) grid, without the monolithic (2B+1, 2B, 2B+1) bin
     buffer."""
     J = 2 * plan.B
+    dev = plan.device
     out = torch.empty(gc.shape[:-3] + (J, J, J), dtype=gc.dtype,
                       device=gc.device)
     for j0, j1 in _slab_bounds(J):
-        direct = gc[..., j0:j1, :]
-        mirror = gc[..., J - j1:J - j0, :].flip(-2)
-        gs = torch.where(plan.reflected[:, None, :], mirror, direct)
-        del mirror
-        bins = _scatter_bins_nomirror(plan, gs)
-        del gs
-        out[..., j0:j1, :] = fft_synthesis(bins)
-        del bins
+        with obs.stage("so3.inverse.scatter", dev):
+            direct = gc[..., j0:j1, :]
+            mirror = gc[..., J - j1:J - j0, :].flip(-2)
+            gs = torch.where(plan.reflected[:, None, :], mirror, direct)
+            del mirror
+            bins = _scatter_bins_nomirror(plan, gs)
+            del gs
+        with obs.stage("so3.inverse.fft", dev):
+            out[..., j0:j1, :] = fft_synthesis(bins)
+            del bins
     return out
 
 
@@ -661,23 +681,39 @@ def _as_complex(x: torch.Tensor) -> torch.Tensor:
 
 def _forward(plan: SoftPlan, f: torch.Tensor, dwt_fn) -> torch.Tensor:
     _require_recurrence_fn(plan, dwt_fn, "dwt_fn")
-    rhs = streamed_rhs(plan, f) if plan.streaming \
-        else _gather_rhs(plan, fft_analysis(f))
-    out = dwt_apply(plan, rhs) if dwt_fn is None else dwt_fn(plan, rhs)
+    dev = plan.device
+    if plan.streaming:
+        rhs = streamed_rhs(plan, f)
+    else:
+        with obs.stage("so3.forward.fft", dev):
+            S = fft_analysis(f)
+        with obs.stage("so3.forward.gather", dev):
+            rhs = _gather_rhs(plan, S)
+            del S
+    with obs.stage("so3.forward.dwt", dev):
+        out = dwt_apply(plan, rhs) if dwt_fn is None else dwt_fn(plan, rhs)
     del rhs
-    return _scatter_coeffs(plan, _as_complex(out))
+    with obs.stage("so3.forward.scatter", dev):
+        return _scatter_coeffs(plan, _as_complex(out))
 
 
 def _inverse(plan: SoftPlan, fhat: torch.Tensor, idwt_fn) -> torch.Tensor:
     _require_recurrence_fn(plan, idwt_fn, "idwt_fn")
-    lhs = _gather_coeffs(plan, fhat)
-    g = idwt_apply(plan, lhs) if idwt_fn is None else idwt_fn(plan, lhs)
+    dev = plan.device
+    with obs.stage("so3.inverse.gather", dev):
+        lhs = _gather_coeffs(plan, fhat)
+    with obs.stage("so3.inverse.dwt", dev):
+        g = idwt_apply(plan, lhs) if idwt_fn is None else idwt_fn(plan, lhs)
     del lhs
-    gc = _as_complex(g)
-    del g
+    with obs.stage("so3.inverse.scatter", dev):
+        gc = _as_complex(g)
+        del g
+        if not plan.streaming:
+            bins = _scatter_bins(plan, gc)
     if plan.streaming:
         return streamed_synthesis(plan, gc)
-    return fft_synthesis(_scatter_bins(plan, gc))
+    with obs.stage("so3.inverse.fft", dev):
+        return fft_synthesis(bins)
 
 
 def _check_ndim(x: torch.Tensor, ndim: int, what: str):

@@ -630,9 +630,9 @@ class DistExecutor:
             outs = []
             for n0 in range(0, local.shape[0], V):
                 chunk, n = kops.pad_lanes(local[n0: n0 + V], V)
-                # host-side dispatch span (launches stay asynchronous);
-                # obs.device_annotation lines it up with a torch.profiler
-                # capture's device timeline when $REPRO_OBS_TORCH_TRACE is on
+                # host-side span: it times the dispatch (launches stay
+                # asynchronous), not the device; obs.device_annotation
+                # puts it in a torch.profiler capture's timeline
                 with obs.span("executor.chunk", mode="off",
                               direction=direction, chunk=n0 // V, lanes=n,
                               n_shards=self.n_shards), \
@@ -658,6 +658,7 @@ class DistExecutor:
                                                       + local.shape[1:])])
         chunks = local.reshape((n_chunks, V) + local.shape[1:])
         direction = "forward" if fwd else "inverse"
+        # host-side span, as the serial path's: it times the dispatch
         with obs.span("executor.pipeline", direction=direction,
                       n_chunks=n_chunks, lanes=n, padded=pad,
                       n_shards=self.n_shards,

@@ -11,7 +11,9 @@ autotune sweep times each candidate into the trace, between CUDA events
 on the card), a streaming plan build (its window stack), a multi-chunk
 batched forward / inverse (executor chunk spans), and a packed
 :class:`repro_torch.so3.SO3Service` workload (per-request and stage
-spans) -- and writes the combined Chrome-trace JSON.  Load it at
+spans) -- and writes the combined Chrome-trace JSON.  The batched pass
+runs inside :func:`repro_torch.obs.device_tracing`, so its chunk spans
+and the ``so3.*`` stages inside them are timed on the device.  Load it at
 chrome://tracing or https://ui.perfetto.dev.
 
 ``--check`` validates the exported trace
@@ -96,8 +98,9 @@ def main(argv=None) -> int:
     n = 2 * V + 1
     f = (rng.normal(size=(n,) + (2 * B,) * 3)
          + 1j * rng.normal(size=(n,) + (2 * B,) * 3))
-    fhat = t.forward_batch(f)
-    t.inverse_batch(fhat)
+    with obs.device_tracing():     # device-timed chunks and so3.* stages
+        fhat = t.forward_batch(f)
+        t.inverse_batch(fhat)
     print(f"executor: {t.stats['launches']} chunked launches over "
           f"{n} lanes")
 

@@ -1,5 +1,5 @@
 """Tracing and metrics for the port: the port's own copy of
-``repro.obs.trace`` (stdlib only).
+``repro.obs.trace``, with device-timed stages.
 
 ONE process-wide :class:`Recorder` that the planner and the executors
 report into:
@@ -12,10 +12,21 @@ report into:
   * **histograms** -- ``obs.observe(name, value)``; a bounded sample ring
     plus running count/total/max, with p50/p95/p99 quantiles computed on
     demand (:meth:`Recorder.quantiles`).
+  * **stages** -- ``with obs.stage("so3.forward.fft", device): ...``
+    a span timed on the device: on a CUDA device, between two CUDA events
+    recorded on the current stream (stream time, the device's waits on
+    the host inside the stage included), on the CPU by the host clock.
+    Recorded only while tracing is on (:func:`tracing`): under a running
+    ``torch.profiler`` capture, where each stage is also a
+    ``record_function`` range on the profiler's clock, or inside
+    ``with obs.device_tracing():``.  Off, a stage is one shared null
+    context.  Pending event pairs wait in the Recorder; every read
+    settles them first.
 
 :meth:`Recorder.dump_chrome_trace` writes Chrome-trace/Perfetto JSON.
 Spans time the host: the executors launch kernels asynchronously, so a
-span around a launch measures its dispatch, not its device time.
+span around a launch measures its dispatch, not its device time; a stage
+around it measures the device time.
 """
 from __future__ import annotations
 
@@ -27,12 +38,17 @@ import pathlib
 import threading
 import time
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
 __all__ = ["Recorder", "span", "add_span", "inc", "observe", "counter",
            "time_fn", "check_chrome_trace", "get_recorder", "set_recorder",
-           "device_annotation", "TRACE_ENV"]
+           "device_annotation", "device_tracing", "tracing", "stage",
+           "STAGE_DROPPED"]
 
-# set (to anything but "", "0" or "false") to turn device_annotation on
-TRACE_ENV = "REPRO_OBS_TORCH_TRACE"
+# counter of device-timed stage pairs dropped for lack of room in the
+# Recorder's pending ring (a reader of stage totals trusts them at 0)
+STAGE_DROPPED = "obs.stage.dropped"
 
 
 class Recorder:
@@ -45,9 +61,11 @@ class Recorder:
     matter how many millions of requests flow through.
     """
 
-    def __init__(self, *, max_events: int = 65536, max_samples: int = 4096):
+    def __init__(self, *, max_events: int = 65536, max_samples: int = 4096,
+                 max_pending: int = 4096):
         self.max_events = int(max_events)
         self.max_samples = int(max_samples)
+        self.max_pending = int(max_pending)
         self._lock = threading.Lock()
         self._origin = time.perf_counter()
         self._events: collections.deque = collections.deque(
@@ -55,6 +73,11 @@ class Recorder:
         self._counters: collections.Counter = collections.Counter()
         self._samples: dict[str, collections.deque] = {}
         self._totals: dict[str, list] = {}   # name -> [count, total, max]
+        # device-timed spans the device may not have reached yet:
+        # (name, t0, tid, start, end, device, attrs); settled by query()
+        # when the ring is full and by every read
+        self._pending: collections.deque = collections.deque()
+        self._event_pool: dict = {}          # device -> free CUDA events
 
     # -- recording ------------------------------------------------------
 
@@ -71,15 +94,86 @@ class Recorder:
     def add_span(self, name: str, t0: float, t1: float, **attrs) -> None:
         """Record a span from explicit ``time.perf_counter`` timestamps
         (for intervals measured across threads, e.g. submit->done)."""
-        dur = max(t1 - t0, 0.0)
+        with self._lock:
+            self._record_locked(name, t0, max(t1 - t0, 0.0),
+                                threading.get_ident(), attrs)
+
+    def _record_locked(self, name: str, t0: float, dur: float, tid: int,
+                       attrs: dict) -> None:
+        """One complete event begun at host time ``t0`` and lasting ``dur``
+        seconds, and its histogram observation."""
         ev = {"name": name, "ph": "X", "cat": name.split(".", 1)[0],
               "ts": (t0 - self._origin) * 1e6, "dur": dur * 1e6,
-              "pid": os.getpid(), "tid": threading.get_ident()}
+              "pid": os.getpid(), "tid": tid}
         if attrs:
             ev["args"] = attrs
+        self._events.append(ev)
+        self._observe_locked(name, dur)
+
+    def add_device_span(self, name: str, t0: float, start, end, *,
+                        device=None, **attrs) -> None:
+        """Record a span timed by a pair of recorded CUDA events (anything
+        with ``query()``, ``synchronize()`` and ``elapsed_time(end)`` in
+        ms) and begun on the host at ``time.perf_counter()`` ``t0``; its
+        event starts there and lasts the device time.  The pair waits in
+        a ring of ``max_pending`` and nothing here waits for the device:
+        a full ring settles the pairs whose end event has completed, and
+        a pair that still finds no room is dropped and counted under
+        :data:`STAGE_DROPPED`.  ``device``: return the pair's events to
+        that device's pool once settled."""
+        self._push(name, t0, (start, end), device, attrs)
+
+    def _push(self, name: str, t0: float, timer, device, attrs: dict):
+        """Queue one stage: ``timer`` is an event pair or, for a stage
+        timed on the host, its seconds (queued too, so that a stage's
+        exit costs one append)."""
         with self._lock:
-            self._events.append(ev)
-            self._observe_locked(name, dur)
+            if len(self._pending) >= self.max_pending:
+                self._settle_locked(block=False)
+            if len(self._pending) >= self.max_pending:
+                self._counters[STAGE_DROPPED] += 1
+                return
+            self._pending.append((name, t0, threading.get_ident(), timer,
+                                  device, attrs))
+
+    def _settle_one_locked(self, entry, block: bool) -> bool:
+        """Record one pending stage if its time is known (``block``: wait
+        for the device); its events go back to their pool."""
+        name, t0, tid, timer, device, attrs = entry
+        if isinstance(timer, float):
+            dur = timer
+        else:
+            start, end = timer
+            if block:
+                end.synchronize()
+            elif not end.query():
+                return False
+            dur = start.elapsed_time(end) / 1e3
+            if device is not None:
+                self._event_pool.setdefault(device, []).extend(timer)
+        self._record_locked(name, t0, dur, tid, attrs)
+        return True
+
+    def _settle_locked(self, block: bool) -> None:
+        """Turn pending stages into spans: all of them (``block``: waiting
+        for the device), else those the device has passed."""
+        self._pending = collections.deque(
+            e for e in self._pending if not self._settle_one_locked(e, block))
+
+    def _settle(self) -> None:
+        """Settle every pending stage before a read (reads are off the hot
+        path, so they may wait for the device)."""
+        if self._pending:
+            with self._lock:
+                self._settle_locked(block=True)
+
+    def _event(self, device):
+        """A timing CUDA event for ``device``, from its pool."""
+        with self._lock:
+            pool = self._event_pool.get(device)
+            if pool:
+                return pool.pop()
+        return torch.cuda.Event(enable_timing=True)
 
     def inc(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -119,6 +213,7 @@ class Recorder:
 
     def events(self) -> list[dict]:
         """Snapshot of the ring-buffered events, sorted by begin time."""
+        self._settle()
         with self._lock:
             evs = list(self._events)
         return sorted(evs, key=lambda e: e["ts"])
@@ -127,6 +222,7 @@ class Recorder:
         """{count, mean, p50, p95, p99, max, total} of one histogram
         (quantiles over the bounded sample ring, count/total/max running
         over everything observed); None if nothing was observed."""
+        self._settle()
         with self._lock:
             ring = self._samples.get(name)
             if not ring:
@@ -143,6 +239,7 @@ class Recorder:
     def summary(self, prefix=None) -> dict:
         """{name: quantiles} for every histogram whose name starts with
         one of ``prefix`` (a str or tuple; None = all)."""
+        self._settle()
         with self._lock:
             names = list(self._samples)
         if prefix is not None:
@@ -185,6 +282,7 @@ class Recorder:
             self._counters.clear()
             self._samples.clear()
             self._totals.clear()
+            self._pending.clear()
             self._origin = time.perf_counter()
 
 
@@ -231,15 +329,88 @@ def counter(name: str) -> int:
     return get_recorder().counter(name)
 
 
+# ---------------------------------------------------------------------------
+# the tracing switch and the device-timed stages
+# ---------------------------------------------------------------------------
+
+_NULL = contextlib.nullcontext()
+_tracing_depth = 0                   # open device_tracing() blocks
+_tracing_lock = threading.Lock()
+
+
+def tracing() -> bool:
+    """True while a ``torch.profiler`` capture runs or a
+    :func:`device_tracing` block is open (in any thread)."""
+    return bool(_tracing_depth) or _autograd_profiler._is_profiler_enabled
+
+
+@contextlib.contextmanager
+def device_tracing():
+    """Turn tracing on for the block without a profiler: stages then feed
+    their device times into the process Recorder's histograms."""
+    global _tracing_depth
+    with _tracing_lock:
+        _tracing_depth += 1
+    try:
+        yield
+    finally:
+        with _tracing_lock:
+            _tracing_depth -= 1
+
+
 def device_annotation(name: str):
     """A ``torch.profiler.record_function(name)`` range around a dispatch
-    site when ``$REPRO_OBS_TORCH_TRACE`` is set, so the host span lines up
+    site while tracing is on (:func:`tracing`), so the host span lines up
     with the device timeline of a surrounding ``torch.profiler`` capture;
-    else a ``contextlib.nullcontext()`` that costs nothing."""
-    if os.environ.get(TRACE_ENV, "") not in ("", "0", "false"):
-        import torch
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+    else a shared null context."""
+    return torch.profiler.record_function(name) if tracing() else _NULL
+
+
+def stage(name: str, device, **attrs):
+    """``with obs.stage("so3.forward.fft", plan.device): ...``: while
+    tracing is on, a ``record_function(name)`` range whose device time
+    (CUDA events on the current stream; the host clock on a CPU device)
+    goes into the default Recorder's span and histogram ``name``.  Off,
+    the shared null context, after one flag read: no lock, no
+    allocation, no ``record_function``."""
+    if _tracing_depth or _autograd_profiler._is_profiler_enabled:
+        return _Stage(name, device, attrs)
+    return _NULL
+
+
+class _Stage:
+    """One traced stage; see :func:`stage`."""
+
+    __slots__ = ("rec", "name", "device", "attrs", "range", "t0", "start",
+                 "stream")
+
+    def __init__(self, name: str, device, attrs: dict):
+        self.t0 = time.perf_counter()
+        self.rec = get_recorder()
+        self.name, self.attrs = name, attrs
+        self.device = device if isinstance(device, torch.device) \
+            else torch.device(device)
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.current_stream(self.device)
+            self.start = self.rec._event(self.device)
+            self.start.record(self.stream)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.device.type == "cuda":
+            end = self.rec._event(self.device)
+            end.record(self.stream)
+            self.range.__exit__(*exc)
+            self.rec.add_device_span(self.name, self.t0, self.start, end,
+                                     device=self.device, **self.attrs)
+        else:                          # CPU ops are synchronous
+            self.range.__exit__(*exc)
+            self.rec._push(self.name, self.t0,
+                           time.perf_counter() - self.t0, None, self.attrs)
 
 
 def check_chrome_trace(doc: dict, required_names=()) -> list[str]:
@@ -290,7 +461,6 @@ def time_fn(fn, *args, reps: int = 3, name: str | None = None,
     ``reps`` / ``per_call_s`` / ``clock`` plus any extra ``attrs``."""
     rec = get_recorder() if recorder is None else recorder
     if device is not None and _is_cuda(device):
-        import torch
         with torch.cuda.device(device):
             fn(*args)                         # build + warm
             start = torch.cuda.Event(enable_timing=True)
@@ -326,6 +496,5 @@ def _is_cuda(device) -> bool:
 
 
 def _torch_sync() -> None:
-    import torch
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()

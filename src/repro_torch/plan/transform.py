@@ -307,7 +307,10 @@ class Transform:
         plans also report the shard axes, the mesh shape along them, the
         per-rank cluster and beta counts, the lane width and the
         process-wide all-to-all counts
-        (:data:`repro_torch.core.parallel.ALL_TO_ALLS`)."""
+        (:data:`repro_torch.core.parallel.ALL_TO_ALLS`).  ``obs`` holds
+        the process Recorder's plan / autotune / obs counters and its
+        plan, autotune, executor and ``so3.*`` stage histograms (the
+        last two filled while tracing is on, :func:`repro_torch.obs.stage`)."""
         s = self.schedule
         sp = self.soft_plan
         rec = obs.get_recorder()
@@ -333,9 +336,9 @@ class Transform:
                                 **dwt_kernels.LAUNCHES},
             "obs": {
                 "counters": {k: v for k, v in rec.counters().items()
-                             if k.startswith(("plan.", "autotune."))},
+                             if k.startswith(("plan.", "autotune.", "obs."))},
                 "spans": rec.summary(prefix=("plan.", "autotune.",
-                                             "executor.")),
+                                             "executor.", "so3.")),
             },
         }
         if self.mesh is not None:
@@ -512,18 +515,24 @@ class Transform:
         fn = get_fn()
         outs = []
         direction = "forward" if fn_kw == "dwt_fn" else "inverse"
+        lanes = f"so3.{direction}.lanes"
         for n0 in range(0, n_total, V):
-            chunk, n = ops.pad_lanes(xs[n0: n0 + V], V)
-            # host-side dispatch span (launches stay async; no sync here)
-            with obs.span("executor.chunk", mode="local",
-                          direction=direction, chunk=n0 // V, lanes=n):
+            with obs.stage(lanes, self.device):
+                chunk, n = ops.pad_lanes(xs[n0: n0 + V], V)
+            # the chunk's device time, while tracing is on (the stages
+            # inside it tile it; no sync here)
+            with obs.stage("executor.chunk", self.device, mode="local",
+                           direction=direction, chunk=n0 // V, lanes=n):
                 out = engine(self.soft_plan, chunk, **{fn_kw: fn})
             stats["launches"] += 1
             stats["transforms"] += n
             stats["padded_lanes"] += V - n
             outs.append(out[:n])
         # one chunk: its output as it is, without a copy of every grid
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        if len(outs) == 1:
+            return outs[0]
+        with obs.stage(lanes, self.device):
+            return torch.cat(outs, dim=0)
 
     # -- executors: S^2 stage and correlation ---------------------------
 

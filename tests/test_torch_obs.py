@@ -1,7 +1,7 @@
 """repro_torch.obs against repro.obs: Recorder.rows() gives the
 reference's rows on the same records, and device_annotation is a null
-context unless $REPRO_OBS_TORCH_TRACE is set, a torch.profiler range when
-it is."""
+context unless tracing is on (a torch.profiler capture running, or an
+obs.device_tracing() block), a torch.profiler range when it is."""
 import contextlib
 
 import pytest
@@ -34,19 +34,17 @@ def test_rows_match_reference():
     assert tobs.Recorder().rows() == []
 
 
-def test_device_annotation_is_null_unless_enabled(monkeypatch):
-    monkeypatch.delenv(tobs.TRACE_ENV, raising=False)
-    assert tobs.TRACE_ENV == "REPRO_OBS_TORCH_TRACE"
-    for value in (None, "", "0", "false"):
-        if value is not None:
-            monkeypatch.setenv(tobs.TRACE_ENV, value)
-        assert isinstance(tobs.device_annotation("x"),
-                          contextlib.nullcontext)
-    monkeypatch.setenv(tobs.TRACE_ENV, "1")
-    ann = tobs.device_annotation("executor.chunk.forward")
-    assert isinstance(ann, torch.profiler.record_function)
+def test_device_annotation_is_null_unless_enabled():
+    assert not tobs.tracing()
+    assert isinstance(tobs.device_annotation("x"), contextlib.nullcontext)
+    with tobs.device_tracing():
+        ann = tobs.device_annotation("executor.chunk.forward")
+        assert isinstance(ann, torch.profiler.record_function)
+    assert isinstance(tobs.device_annotation("x"), contextlib.nullcontext)
     with torch.profiler.profile() as prof:
+        assert tobs.tracing()
         with tobs.device_annotation("executor.chunk.forward"):
             torch.ones(4).sum()
     names = {e.key for e in prof.key_averages()}
     assert "executor.chunk.forward" in names
+    assert not tobs.tracing()

@@ -160,15 +160,22 @@ def test_schedule_and_describe():
 
 
 def test_executor_spans_recorded():
+    """executor.chunk spans, one a chunk, are recorded while tracing is on
+    and only then."""
     rec = obs.Recorder()
     old = obs.set_recorder(rec)
     try:
         t = tplan(4, device="cpu", V=2)
         t.inverse_batch(_stack(4, range(3)))
+        assert not [e for e in rec.events() if e["name"] == "executor.chunk"]
+        with obs.device_tracing():
+            t.inverse_batch(_stack(4, range(3)))
     finally:
         obs.set_recorder(old)
     chunks = [e for e in rec.events() if e["name"] == "executor.chunk"]
     assert [e["args"]["lanes"] for e in chunks] == [2, 1]
+    assert [e["args"]["chunk"] for e in chunks] == [0, 1]
+    assert {e["args"]["mode"] for e in chunks} == {"local"}
 
 
 @pytest.mark.parametrize("kwargs", [dict(tune="measure"),
