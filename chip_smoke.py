@@ -955,6 +955,125 @@ def fft_lane_check(B: int, V: int, dtype, seed: int) -> dict:
     return res
 
 
+def scaled_slab_spectrum(f, j0: int, j1: int):
+    """(2B)^2 * ifft2 of beta rows [j0, j1), each ifft normalised by 1 / 2B
+    as torch does by default, lane by lane: a slab spectrum as the
+    two-spectra loop computed it."""
+    import torch
+    if f.ndim > 3:
+        return torch.stack([scaled_slab_spectrum(x, j0, j1) for x in f])
+    n = f.shape[-3]
+    return (n * n) * torch.fft.ifft(torch.fft.ifft(f[..., j0:j1, :], dim=-3),
+                                    dim=-1)
+
+
+def two_spectra_slabs(plan, f):
+    """(j0, j1, rows) for each beta slab: the rhs rows (..., K, j1 - j0, C,
+    2) of the beta-slab FFT + gather with two scaled spectra a slab, the
+    slab's own and its mirror slab's, with that loop's order of operations
+    and frees (a caller drops ``rows`` before asking for the next slab)."""
+    import torch
+    from repro_torch.core import batched
+    J = 2 * plan.B
+    for j0, j1 in batched._slab_bounds(J):
+        S_direct = scaled_slab_spectrum(f, j0, j1)
+        direct = batched._at_members(plan, S_direct)
+        del S_direct
+        S_mirror = scaled_slab_spectrum(f, J - j1, J - j0)
+        mirror = batched._at_members(plan, S_mirror).flip(-1)
+        del S_mirror
+        Sm = torch.where(plan.reflected[..., None], mirror, direct)
+        del direct, mirror
+        rows = batched._rhs_from_members(plan, Sm, plan.w[j0:j1])
+        del Sm
+        yield j0, j1, rows
+        del rows
+
+
+def two_spectra_rhs(plan, f):
+    """core.batched.streamed_rhs's result from two_spectra_slabs."""
+    import torch
+    K, C = plan.gather_m.shape
+    rhs = torch.empty(f.shape[:-3] + (K, 2 * plan.B, C, 2), dtype=plan.dtype,
+                      device=f.device)
+    for j0, j1, rows in two_spectra_slabs(plan, f):
+        rhs[..., j0:j1, :, :] = rows
+        del rows
+    return rhs
+
+
+def fft_gather_check(t, V, seed: int, *, peaks: bool) -> dict:
+    """The beta-slab forward's FFT + gather at plan t's shapes on random
+    grids (V of them, or one unstacked grid for V None):
+    core.batched.streamed_rhs (each slab's spectrum computed once,
+    unscaled, and shared with its mirror slab) torch.equal to
+    two_spectra_slabs, slab by slab so that both fit at B = 512, and the
+    device time of each.  With ``peaks``, the peak device memory of one
+    t.forward with each (streamed_rhs swapped for two_spectra_rhs); the
+    shared spectra must not take more."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import batched
+
+    dev = torch.device(DEV)
+    plan = t.soft_plan
+    if not plan.streaming:
+        fail(f"fft_gather_check: plan({t.B}) runs whole grids, no slabs")
+    n = 2 * t.B
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.randn(((V,) if V else ()) + (n, n, n), generator=gen,
+                    device=dev, dtype=t.cdtype)
+    before = obs.counter(batched.SLAB_SPECTRA)
+    rhs = batched.streamed_rhs(plan, f)
+    spectra = obs.counter(batched.SLAB_SPECTRA) - before
+    same, diff = True, 0.0
+    for j0, j1, rows in two_spectra_slabs(plan, f):
+        part = rhs[..., j0:j1, :, :]
+        if not torch.equal(part, rows):
+            same = False
+            diff = max(diff, float((part - rows).abs().max()))
+        del part, rows
+    del rhs
+    res = {"B": t.B, "V": V, "slabs": len(batched._slab_bounds(n)),
+           "slab_spectra": spectra, "bitwise": same, "max_abs_diff": diff,
+           "ms": cuda_ms(lambda: batched.streamed_rhs(plan, f), 2),
+           "two_spectra_ms": cuda_ms(lambda: two_spectra_rhs(plan, f), 2)}
+    log(f"  streamed_rhs B={t.B} V={V} {t.cdtype}: == two spectra a slab "
+        f"{same} (max diff {diff:.3e}); {spectra} slab spectra for "
+        f"{res['slabs']} slabs; {res['ms']:.3f} ms, two spectra "
+        f"{res['two_spectra_ms']:.3f} ms")
+    if not same:
+        fail(f"streamed_rhs != two spectra a slab at B={t.B} V={V}")
+    if spectra != res["slabs"]:
+        fail(f"streamed_rhs made {spectra} slab spectra for {res['slabs']} "
+             "slabs")
+    if peaks:
+        call = (lambda: t.forward_batch(f)) if V else (lambda: t.forward(f))
+        call()                         # the plan's lazy operands, once
+        torch.cuda.empty_cache()
+        out, res["forward_peak_bytes"], res["before_bytes"] = peak_of(call)
+        del out
+        torch.cuda.empty_cache()
+        shared = batched.streamed_rhs
+        batched.streamed_rhs = two_spectra_rhs
+        try:
+            out, res["two_spectra_forward_peak_bytes"], _ = peak_of(call)
+        finally:
+            batched.streamed_rhs = shared
+        del out
+        log(f"  peak device memory of one plan({t.B}).forward: "
+            f"{res['forward_peak_bytes']}, two spectra a slab "
+            f"{res['two_spectra_forward_peak_bytes']} (before "
+            f"{res['before_bytes']})")
+        if res["forward_peak_bytes"] > res["two_spectra_forward_peak_bytes"]:
+            fail(f"plan({t.B}).forward: peak {res['forward_peak_bytes']} "
+                 f"over the two-spectra loop's "
+                 f"{res['two_spectra_forward_peak_bytes']}")
+    del f
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3d: the on-the-fly, dense and ragged kernels
 # ---------------------------------------------------------------------------
@@ -1614,6 +1733,7 @@ def big_roundtrip(B: int, mem128: dict) -> dict:
         f"(host clock)")
     del f, fhat
     torch.cuda.empty_cache()
+    fft_gather = fft_gather_check(t, None, seed=5121, peaks=True)
 
     # the fused kernels alone at the full shape (launch order via perm)
     sp = t.soft_plan
@@ -1645,7 +1765,7 @@ def big_roundtrip(B: int, mem128: dict) -> dict:
             "before_inverse_bytes": before_inv,
             "before_forward_bytes": before_fwd,
             "estimate_bytes": est, "launches": counts,
-            "kernels_full_shape": full}
+            "fft_gather": fft_gather, "kernels_full_shape": full}
 
 
 # ---------------------------------------------------------------------------
@@ -4219,11 +4339,15 @@ def main() -> int:
     del c
     torch.cuda.empty_cache()
 
-    log("== 3b. batched cuFFT against one call per grid")
+    log("== 3b. batched cuFFT against one call per grid; the beta-slab "
+        "FFT + gather against two spectra a slab")
     fft_lanes = {f"B{B}_{str(dt)[6:]}_V{V}": fft_lane_check(B, V, dt, seed=B)
                  for B, dt, V in ((128, torch.float64, 8),
                                   (64, torch.float64, 8),
                                   (64, torch.float32, 8))}
+    import repro_torch
+    fft_gather = {"B128_V8": fft_gather_check(repro_torch.plan(128), 8,
+                                              seed=1282, peaks=False)}
 
     log("== 3c. streaming kernels == fused kernels, bit for bit")
     bitwise = {}
@@ -4255,7 +4379,6 @@ def main() -> int:
     # from here on, and phase 4's peak must not count it
     log("== 3d. on-the-fly, dense and ragged kernels against their plain "
         "versions")
-    import repro_torch
     for B, dt, V, tl in ((4, torch.float64, 1, 2), (8, torch.float32, 2, 4),
                          (16, torch.float64, 3, 16), (32, torch.float64, 1, 4),
                          (32, torch.float32, 3, 32)):
@@ -4504,7 +4627,8 @@ def main() -> int:
                "b256_single_roundtrip_ms": ms256,
                "b256_roundtrip": rt256, "b256_bf16": bf16_256, "b512": {k: v for k, v in r512.items()
                                                  if k != "kernels_full_shape"},
-               "fft_lanes": fft_lanes, "streaming_equals_fused": bitwise,
+               "fft_lanes": fft_lanes, "fft_gather_b128": fft_gather,
+               "streaming_equals_fused": bitwise,
                "bf16_planted_faults_b128_f32": planted,
                "tol_bf16": TOL_BF16,
                "recurrence_kernels": rec_kernels,

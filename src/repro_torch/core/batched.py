@@ -465,11 +465,21 @@ def _per_grid(fn):
     return stage
 
 
+def _ifft2(x: torch.Tensor) -> torch.Tensor:
+    """(2B)^2 * ifft2 over the alpha and gamma axes (dims -3 and -1) of
+    (..., 2B, j, 2B) samples: both transforms unnormalized
+    (``norm="forward"``), with no scaling pass.  Where 2B is a power of
+    two this is bitwise the scaled form (each ifft by 1 / 2B, the result
+    by (2B)^2), as scaling by a power of two is exact short of underflow;
+    for another 2B it differs from it by rounding."""
+    return torch.fft.ifft(torch.fft.ifft(x, dim=-3, norm="forward"), dim=-1,
+                          norm="forward")
+
+
 @_per_grid
 def fft_analysis(f: torch.Tensor) -> torch.Tensor:
     """Samples (..., 2B, 2B, 2B) -> S[..., mbin, j, m'bin]: (2B)^2 * ifft2."""
-    n = f.shape[-3]
-    return (n * n) * torch.fft.ifft(torch.fft.ifft(f, dim=-3), dim=-1)
+    return _ifft2(f)
 
 
 @_per_grid
@@ -487,25 +497,30 @@ def fft_synthesis(gbin: torch.Tensor) -> torch.Tensor:
 # batched over 2B or over a slab's worth of columns.  The only j-coupling
 # in the surrounding gather/scatter is the beta reflection: a reflected
 # member's output slab [j0, j1) reads the MIRROR slab [J-j1, J-j0)
-# reversed, whose FFT is computed directly from the matching f slab.
+# reversed.  The forward computes each slab's spectrum once and writes its
+# rows and its mirror's from the pair.
 # ---------------------------------------------------------------------------
 
 GRID_N_SLABS = 4
+SLAB_SPECTRA = "so3.forward.slab_spectra"     # obs counter: slab FFTs made
 
 
 @functools.lru_cache(maxsize=64)
 def _slab_bounds(J: int, n_slabs: int = GRID_N_SLABS):
-    cuts = np.linspace(0, J, min(n_slabs, J) + 1).astype(int)
-    return tuple((int(cuts[i]), int(cuts[i + 1]))
-                 for i in range(len(cuts) - 1) if cuts[i] < cuts[i + 1])
+    """Beta slabs [j0, j1) that cover [0, J) and are mirror-symmetric: the
+    mirror [J - j1, J - j0) of a slab is a slab.  The lower half's cuts are
+    np.linspace's and the upper half's their reflections, so for 4 | J the
+    slabs are linspace's J / 4 rows each."""
+    n = min(n_slabs, J)
+    low = np.linspace(0, J, n + 1).astype(int)[: n // 2 + 1]
+    cuts = sorted({int(c) for c in low} | {J - int(c) for c in low})
+    return tuple(zip(cuts[:-1], cuts[1:]))
 
 
 @_per_grid
 def fft_analysis_slab(f: torch.Tensor, j0: int, j1: int) -> torch.Tensor:
     """fft_analysis restricted to beta rows [j0, j1)."""
-    n = f.shape[-3]
-    return (n * n) * torch.fft.ifft(
-        torch.fft.ifft(f[..., j0:j1, :], dim=-3), dim=-1)
+    return _ifft2(f[..., j0:j1, :])
 
 
 def _at_members(plan: SoftPlan, S: torch.Tensor) -> torch.Tensor:
@@ -520,31 +535,54 @@ def _rhs_from_members(plan: SoftPlan, Sm: torch.Tensor, w: torch.Tensor):
     return torch.view_as_real(Sm).transpose(-3, -2)       # (..., K, j, C, 2)
 
 
+def _write_slab_rows(plan: SoftPlan, rows: torch.Tensor, j0: int, j1: int,
+                     own: torch.Tensor, mirror: torch.Tensor) -> None:
+    """rhs rows [j0, j1) from the members of slab [j0, j1) (``own``) and
+    of its mirror slab (``mirror``), as _gather_rhs computes them: a
+    beta-reflected member reads the mirror's values in reverse order.
+    ``rows`` is rhs as a complex (..., K, C, J) view; the choice is made in
+    the flip's buffer and the weighted product goes straight into rhs."""
+    Sm = mirror.flip(-1)
+    torch.where(plan.reflected[..., None], Sm, own, out=Sm)
+    torch.mul(Sm, plan.sign[..., None] * plan.w[j0:j1], out=rows[..., j0:j1])
+
+
 def streamed_rhs(plan: SoftPlan, f: torch.Tensor) -> torch.Tensor:
     """FFT-analysis + gather, streamed in beta slabs: equal to
     _gather_rhs(plan, fft_analysis(f)), written slab by slab into one
-    (..., K, J, C, 2) buffer, with O((2B)^2 * slab) intermediates."""
+    (..., K, J, C, 2) buffer, with O((2B)^2 * slab) intermediates.  The
+    slabs go in mirror pairs: each slab's spectrum is computed once
+    (counted by the obs counter ``so3.forward.slab_spectra``), gathered and
+    freed, and the pair's members give both slabs' rows."""
     J = 2 * plan.B
     K, C = plan.gather_m.shape
     dev = plan.device
     rhs = torch.empty(f.shape[:-3] + (K, J, C, 2), dtype=plan.dtype,
                       device=f.device)
-    for j0, j1 in _slab_bounds(J):
+    rows = torch.view_as_complex(rhs).transpose(-2, -1)  # (..., K, C, J)
+    bounds = _slab_bounds(J)
+    n = len(bounds)
+    for i in range((n + 1) // 2):
+        a, b = bounds[i], bounds[n - 1 - i]       # slab i and its mirror
         with obs.stage("so3.forward.fft", dev):
-            S_direct = fft_analysis_slab(f, j0, j1)
-        with obs.stage("so3.forward.gather", dev):
-            direct = _at_members(plan, S_direct)
-            del S_direct
-        with obs.stage("so3.forward.fft", dev):
-            S_mirror = fft_analysis_slab(f, J - j1, J - j0)
-        with obs.stage("so3.forward.gather", dev):
-            mirror = _at_members(plan, S_mirror).flip(-1)
-            del S_mirror
-            Sm = torch.where(plan.reflected[..., None], mirror, direct)
-            del direct, mirror
-            rhs[..., j0:j1, :, :] = _rhs_from_members(plan, Sm,
-                                                      plan.w[j0:j1])
-            del Sm
+            S = fft_analysis_slab(f, *a)
+        obs.inc(SLAB_SPECTRA)
+        if b != a:
+            with obs.stage("so3.forward.gather", dev):
+                own = _at_members(plan, S)
+                del S
+            with obs.stage("so3.forward.fft", dev):
+                S = fft_analysis_slab(f, *b)
+            obs.inc(SLAB_SPECTRA)
+        with obs.stage("so3.forward.gather", dev):   # and the pair's rows
+            mirror = _at_members(plan, S)
+            del S
+            if b == a:
+                own = mirror             # the middle slab is its own mirror
+            _write_slab_rows(plan, rows, *a, own, mirror)
+            if b != a:
+                _write_slab_rows(plan, rows, *b, mirror, own)
+            del own, mirror
     return rhs
 
 

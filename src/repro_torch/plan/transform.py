@@ -308,9 +308,11 @@ class Transform:
         per-rank cluster and beta counts, the lane width and the
         process-wide all-to-all counts
         (:data:`repro_torch.core.parallel.ALL_TO_ALLS`).  ``obs`` holds
-        the process Recorder's plan / autotune / obs counters and its
-        plan, autotune, executor and ``so3.*`` stage histograms (the
-        last two filled while tracing is on, :func:`repro_torch.obs.stage`)."""
+        the process Recorder's plan / autotune / obs / ``so3.*`` counters
+        (``so3.forward.slab_spectra``: the beta-slab forward's slab FFTs)
+        and its plan, autotune, executor and ``so3.*`` stage histograms
+        (the last two filled while tracing is on,
+        :func:`repro_torch.obs.stage`)."""
         s = self.schedule
         sp = self.soft_plan
         rec = obs.get_recorder()
@@ -336,7 +338,8 @@ class Transform:
                                 **dwt_kernels.LAUNCHES},
             "obs": {
                 "counters": {k: v for k, v in rec.counters().items()
-                             if k.startswith(("plan.", "autotune.", "obs."))},
+                             if k.startswith(("plan.", "autotune.", "obs.",
+                                              "so3."))},
                 "spans": rec.summary(prefix=("plan.", "autotune.",
                                              "executor.", "so3.")),
             },

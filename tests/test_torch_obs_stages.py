@@ -37,7 +37,7 @@ def _expected(t, direction, chunks=None):
     transform, else a batch of that many V-lane chunks."""
     n = len(tb._slab_bounds(2 * t.B)) if t.soft_plan.streaming else 0
     if direction == "forward":
-        body = ["fft", "gather"] * (2 * n or 1) + ["dwt", "scatter"]
+        body = ["fft", "gather"] * (n or 1) + ["dwt", "scatter"]
     else:
         body = ["gather", "dwt", "scatter"] + (["scatter", "fft"] * n
                                                or ["fft"])
@@ -122,6 +122,7 @@ def test_tracing_off_enters_no_record_function(rec, monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", Counting)
     t = _plan(8, True)
     x = _inputs(8)
+    rec.clear()              # the plan's build spans, when this test builds it
     assert not obs.tracing()
     assert obs.stage("so3.forward.fft", "cpu") is \
         obs.stage("so3.inverse.dwt", t.device)
@@ -170,6 +171,26 @@ def test_profiler_ranges_nest_in_order(B, streaming, rec, tmp_path):
             f"so3.{direction}.{s}" for s in _expected(t, direction, chunks)]
     n = sum(len(_expected(t, d, c)) for _, d, c, _ in calls)
     assert sum(q["count"] for q in rec.summary(prefix="so3.").values()) == n
+
+
+@pytest.mark.parametrize("B,streaming", PLANS)
+def test_slab_spectra_counter(B, streaming, rec):
+    """so3.forward.slab_spectra counts the beta-slab forward's slab FFTs:
+    one a slab per V-lane chunk, tracing on or off, none on an inverse or
+    on a whole-grid plan; Transform.describe() reads it."""
+    t = _plan(B, streaming)
+    n = len(tb._slab_bounds(2 * B)) if streaming else 0
+    x = _inputs(B)
+    grids = t.inverse_batch(x)
+    assert rec.counter(tb.SLAB_SPECTRA) == 0
+    t.inverse(x[0])
+    assert rec.counter(tb.SLAB_SPECTRA) == 0
+    t.forward(grids[0])
+    assert rec.counter(tb.SLAB_SPECTRA) == n
+    with obs.device_tracing():
+        t.forward_batch(grids)                        # two chunks
+    assert rec.counter(tb.SLAB_SPECTRA) == 3 * n
+    assert t.describe()["obs"]["counters"].get(tb.SLAB_SPECTRA, 0) == 3 * n
 
 
 class _Event:

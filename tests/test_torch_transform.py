@@ -88,19 +88,152 @@ def test_batched_lane_equals_single_bitwise(B, streaming):
 
 
 def test_beta_slab_equals_monolithic_bitwise():
+    """B = 8 slabs J = 16 in linspace's quarters; at B = 5 and 7 (J % 4
+    == 2) the mirror-symmetric cuts are no longer linspace's, in the
+    inverse too."""
+    for B in (8, 5, 7):
+        mono = tplan(B, device="cpu", streaming=False, V=2)
+        slab = tplan(B, device="cpu", streaming=True, V=2)
+        assert not mono.soft_plan.streaming and slab.soft_plan.streaming
+        fhats = _stack(B, (5, 6, 7))
+        assert torch.equal(slab.inverse(fhats[0]), mono.inverse(fhats[0]))
+        f = mono.inverse_batch(fhats)
+        assert torch.equal(slab.inverse_batch(fhats), f)
+        assert torch.equal(slab.forward(f[0]), mono.forward(f[0]))
+        assert torch.equal(slab.forward_batch(f), mono.forward_batch(f))
+        plan = mono.soft_plan
+        assert torch.equal(tb.streamed_rhs(plan, f),
+                           tb._gather_rhs(plan, tb.fft_analysis(f)))
+
+
+def _scaled_ifft2(x):
+    """(2B)^2 * ifft2 as the scaled formula: each ifft normalised by 1 / 2B,
+    the result multiplied by (2B)^2; lane by lane for a stack."""
+    if x.ndim > 3:
+        return torch.stack([_scaled_ifft2(xi) for xi in x])
+    n = x.shape[-3]
+    return (n * n) * torch.fft.ifft(torch.fft.ifft(x, dim=-3), dim=-1)
+
+
+def _unscaled_ifft2(x):
+    """(2B)^2 * ifft2 with both iffts unnormalized; lane by lane."""
+    if x.ndim > 3:
+        return torch.stack([_unscaled_ifft2(xi) for xi in x])
+    return torch.fft.ifft(torch.fft.ifft(x, dim=-3, norm="forward"), dim=-1,
+                          norm="forward")
+
+
+def _pow2(n):
+    return n & (n - 1) == 0
+
+
+def _assert_rounding_close(got, want):
+    """got differs from want by the rounding of the 1 / 2B scalings alone:
+    at most 4 ulps of the largest value (1.7 ulps measured)."""
+    eps = torch.finfo(want.real.dtype).eps
+    assert (got - want).abs().max() <= 4 * eps * want.abs().max()
+
+
+def _linspace_bounds(J):
+    cuts = np.linspace(0, J, min(tb.GRID_N_SLABS, J) + 1).astype(int)
+    return tuple((int(a), int(b)) for a, b in zip(cuts, cuts[1:]) if a < b)
+
+
+def _two_spectra_rhs(plan, f, ifft2):
+    """The beta-slab FFT + gather with two spectra a slab, the slab's own
+    and its mirror's, each from ``ifft2``: rows [j0, j1) of
+    _gather_rhs(plan, fft_analysis(f)) for any cut of [0, J) into slabs."""
+    J = 2 * plan.B
+    K, C = plan.gather_m.shape
+    rhs = torch.empty(f.shape[:-3] + (K, J, C, 2), dtype=plan.dtype)
+    for j0, j1 in _linspace_bounds(J):
+        direct = tb._at_members(plan, ifft2(f[..., j0:j1, :]))
+        mirror = tb._at_members(
+            plan, ifft2(f[..., J - j1:J - j0, :])).flip(-1)
+        Sm = torch.where(plan.reflected[..., None], mirror, direct)
+        rhs[..., j0:j1, :, :] = tb._rhs_from_members(plan, Sm, plan.w[j0:j1])
+    return rhs
+
+
+def _grids(B, V, dtype, seed):
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((V,) + (2 * B,) * 3, generator=gen, dtype=cdt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("V", [1, 2])
+@pytest.mark.parametrize("B", [5, 7, 8, 16])
+def test_streamed_rhs_equals_two_spectra_loop_bitwise(B, V, dtype):
+    """One spectrum a slab, shared with its mirror slab and computed
+    unscaled, gives the bits of two spectra a slab (scaled ones where 2B
+    is a power of two, unscaled ones else) and of the whole-grid FFT +
+    gather; lane 0 alone gives lane 0's."""
+    plan = tplan(B, dtype, device="cpu", streaming=True, V=2).soft_plan
+    assert plan.streaming
+    f = _grids(B, V, dtype, seed=10 * B + V)
+    rhs = tb.streamed_rhs(plan, f)
+    ifft2 = _scaled_ifft2 if _pow2(2 * B) else _unscaled_ifft2
+    assert torch.equal(rhs, _two_spectra_rhs(plan, f, ifft2))
+    assert torch.equal(rhs, tb._gather_rhs(plan, tb.fft_analysis(f)))
+    assert torch.equal(tb.streamed_rhs(plan, f[0]), rhs[0])
+
+
+@pytest.mark.parametrize("n_slabs", [1, 3, 5])
+def test_streamed_rhs_middle_slab_is_its_own_mirror(n_slabs, monkeypatch):
+    """With an odd slab count the middle slab is its own mirror: its one
+    spectrum serves both roles, and the rows stay bitwise the whole-grid
+    FFT + gather's."""
     B = 8
-    mono = tplan(B, device="cpu", streaming=False, V=2)
-    slab = tplan(B, device="cpu", streaming=True, V=2)
-    assert not mono.soft_plan.streaming and slab.soft_plan.streaming
-    fhats = _stack(B, (5, 6, 7))
-    assert torch.equal(slab.inverse(fhats[0]), mono.inverse(fhats[0]))
-    f = mono.inverse_batch(fhats)
-    assert torch.equal(slab.inverse_batch(fhats), f)
-    assert torch.equal(slab.forward(f[0]), mono.forward(f[0]))
-    assert torch.equal(slab.forward_batch(f), mono.forward_batch(f))
-    plan = mono.soft_plan
-    assert torch.equal(tb.streamed_rhs(plan, f),
-                       tb._gather_rhs(plan, tb.fft_analysis(f)))
+    plan = tplan(B, device="cpu", streaming=True, V=2).soft_plan
+    bounds = tb._slab_bounds(2 * B, n_slabs)
+    assert len(bounds) == n_slabs
+    monkeypatch.setattr(tb, "_slab_bounds", lambda J: bounds)
+    f = _grids(B, 2, torch.float64, seed=n_slabs)
+    rec = obs.Recorder()
+    old = obs.set_recorder(rec)
+    try:
+        rhs = tb.streamed_rhs(plan, f)
+    finally:
+        obs.set_recorder(old)
+    assert rec.counter(tb.SLAB_SPECTRA) == n_slabs
+    assert torch.equal(rhs, tb._gather_rhs(plan, tb.fft_analysis(f)))
+
+
+def test_slab_bounds_are_mirror_symmetric():
+    """Slabs cover [0, J) in order, the mirror of each is a slab, and for
+    4 | J they are np.linspace's cuts (J = 256 and 1024 included), so the
+    slab shapes of plan(128) and plan(512) stay as they were."""
+    for J in list(range(2, 65)) + [256, 1024]:
+        bounds = tb._slab_bounds(J)
+        assert bounds[0][0] == 0 and bounds[-1][1] == J, J
+        assert all(a < b for a, b in bounds), J
+        assert all(x[1] == y[0] for x, y in zip(bounds, bounds[1:])), J
+        assert set(bounds) == {(J - b, J - a) for a, b in bounds}, J
+        assert len(bounds) <= tb.GRID_N_SLABS + 1, J
+        if J % 4 == 0:
+            assert bounds == _linspace_bounds(J), J
+    assert tb._slab_bounds(256) == ((0, 64), (64, 128), (128, 192),
+                                    (192, 256))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", [3, 5, 8, 16])
+def test_fft_analysis_equals_scaled_formula_bitwise(B, dtype):
+    """Unnormalized iffts give the scaled formula's bits where 2B is a
+    power of two (B = 8, 16); at B = 3 and 5 they differ by its rounding
+    alone."""
+    f = _grids(B, 2, dtype, seed=B)
+    pairs = [(tb.fft_analysis(f), _scaled_ifft2(f)),
+             (tb.fft_analysis(f[1]), _scaled_ifft2(f[1]))]
+    pairs += [(tb.fft_analysis_slab(f, j0, j1),
+               _scaled_ifft2(f[..., j0:j1, :]))
+              for j0, j1 in tb._slab_bounds(2 * B)]
+    for got, want in pairs:
+        if _pow2(2 * B):
+            assert torch.equal(got, want)
+        else:
+            _assert_rounding_close(got, want)
 
 
 @pytest.mark.parametrize("B", [8, 16])
